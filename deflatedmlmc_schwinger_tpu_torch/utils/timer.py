@@ -1,0 +1,35 @@
+"""Phase timing (counterpart of deflatedmlmc_schwinger_tpu/utils/timer.py):
+coarse host-visible phases (setup, deflation setup, rough trace, sampling)
+on the host clock, with ``torch.cuda.synchronize`` at each phase edge when
+a CUDA device is in use, so a phase's time includes its device work."""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+from typing import Dict, Optional
+
+import torch
+
+
+class PhaseTimer:
+    def __init__(self, device: Optional[torch.device] = None):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.device = None if device is None else torch.device(device)
+
+    def _sync(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextmanager
+    def phase(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
