@@ -3,8 +3,9 @@
 
 ``set_params`` holds all five configurations as data, field for field the
 JAX package's (the reasons behind each tuned knob are documented there).
-Only G301 runs in this package so far; the other entries wait for their
-slices (ROADMAP.md).
+G102, G202 and G301 run in this package. G101/G201 (the 16^2 profile's
+GMRES smoother) and G302 (the device setup backend and the mesh) wait for
+their slices (ROADMAP.md queue).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict
 import torch
 
 from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig, TraceConfig
-from deflatedmlmc_schwinger_tpu_torch.examples import EXAMPLE_001
+from deflatedmlmc_schwinger_tpu_torch.examples import EXAMPLE_001, EXAMPLE_002
 
 _SCHWINGER128_COMMON = dict(
     matrix="schwinger128.mat",
@@ -153,9 +154,21 @@ def set_params(example_name: str) -> TraceConfig:
     return TraceConfig(**_CONFIGS[example_name])
 
 
+def G102(*, device="cuda"):
+    """Deflated Hutchinson, Schwinger 128^2, the tuned profile (needs
+    schwinger128.mat)."""
+    return EXAMPLE_001(set_params("schwinger128"), device=device)
+
+
+def G202(*, device="cuda"):
+    """Deflated MG-MLMC, Schwinger 128^2, the tuned profile (needs
+    schwinger128.mat)."""
+    return EXAMPLE_002(set_params("schwinger128"), device=device)
+
+
 def G301(*, device="cuda"):
     """Deflated Hutchinson on a generated 256^2 quenched configuration."""
     return EXAMPLE_001(set_params("schwinger256"), device=device)
 
 
-ENTRIES = {"G301": G301}
+ENTRIES = {"G102": G102, "G202": G202, "G301": G301}

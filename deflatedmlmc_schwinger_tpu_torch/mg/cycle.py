@@ -110,9 +110,22 @@ class MGSolver:
         self.cfg = cfg or SolverConfig()
         self._preconds: Dict[int, Callable] = {}
         self._poly_roots: Dict[int, np.ndarray] = {}
+        self._derived: Dict[SolverConfig, "MGSolver"] = {}
         # outer iterations per starting level (the reference charges one
         # coarsest-level application per outer iteration)
         self.coarsest_lev_iters = [0] * hier.nr_levels
+        self.num_iters = 0
+        self.total_solve_calls = 0
+
+    def derived(self, cfg: Optional[SolverConfig]) -> "MGSolver":
+        """A solver over the same hierarchy with another SolverConfig (the
+        deflation setup's ``defl_solver``), cached per config so that every
+        caller in a process shares its smoother roots and V-cycles."""
+        if cfg is None or cfg == self.cfg:
+            return self
+        if cfg not in self._derived:
+            self._derived[cfg] = MGSolver(self.hier, cfg)
+        return self._derived[cfg]
 
     def _roots_for(self, level_index: int) -> np.ndarray:
         if level_index not in self._poly_roots:
@@ -172,6 +185,16 @@ class MGSolver:
             stall_ratio=self.cfg.stall_ratio,
             stall_cycles=self.cfg.stall_cycles,
         )
-        # kept as a device scalar: converting here would sync every solve
-        self.coarsest_lev_iters[level] = self.coarsest_lev_iters[level] + res.iters.max()
+        # kept as device scalars: converting here would sync every solve.
+        # One coarsest-level application is charged per outer iteration of
+        # the slowest row (the reference's rule, up to batching).
+        iters = res.iters.max()
+        self.num_iters = iters
+        self.total_solve_calls += 1
+        self.coarsest_lev_iters[level] = self.coarsest_lev_iters[level] + iters
         return res
+
+    def coarsest_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Apply the precomputed dense coarsest inverse to (B, n_c) rows."""
+        self.coarsest_lev_iters[self.hier.nr_levels - 1] += 1
+        return b @ self.hier.coarsest_inv.T

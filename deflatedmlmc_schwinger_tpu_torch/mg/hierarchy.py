@@ -174,6 +174,15 @@ class BlockProlongator(nn.Module):
         out = torch.einsum("alk,...al->...ak", self.blocks.conj(), xa)
         return out.reshape(x.shape[:-1] + (na * dc,))
 
+    def to_dense(self) -> np.ndarray:
+        """P as a host complex (n_fine, n_coarse) matrix."""
+        b = self.blocks.detach().cpu().numpy()
+        na, L, dc = b.shape
+        P = np.zeros((na * L, na * dc), dtype=b.dtype)
+        for j in range(na):
+            P[j * L:(j + 1) * L, j * dc:(j + 1) * dc] = b[j]
+        return P
+
 
 class MGLevel(nn.Module):
     """One level: its operator, the prolongator to the next coarser level

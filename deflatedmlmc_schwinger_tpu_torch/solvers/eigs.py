@@ -1,16 +1,29 @@
-"""Eigensolvers for the setup phase (subset of
+"""Eigensolvers for the setup phases (counterpart of
 deflatedmlmc_schwinger_tpu/solvers/eigs.py).
 
-Smallest-|lambda| eigenpairs of the Hermitian Q = gamma3 D come from
-Chebyshev-filtered subspace iteration (CheFSI) on Q^2 with harmonic Ritz
-extraction. The (m, n) subspace, the filter, the Gram and projection
-products and the recombination run as tensors on the operator's device;
-only the m x m solves run on the host.
+  * Smallest-|lambda| eigenpairs of the Hermitian Q = gamma3 D for MG test
+    vectors: Chebyshev-filtered subspace iteration (CheFSI) on Q^2 with
+    harmonic Ritz extraction; the (m, n) subspace stays on the operator's
+    device and only the m x m solves run on the host.
+  * The deflation basis of deflated Hutchinson:
+    ``inverse_iteration_smallest_device``, inverse subspace iteration
+    V <- Q^{-1} V through MG solves, with a harmonic-Ritz round after each
+    solve, a final plain Rayleigh--Ritz on a whitened basis and ghost
+    rejection. Here the m x m Cholesky, triangular solves and eigh run in
+    ``torch.linalg`` on the operator's device, in the working dtype (as the
+    JAX package's jitted round does): a round then reads one stacked
+    (theta, res) pair on the host, and the (m, n) basis never leaves the
+    device. The final whitening runs in complex128 (the JAX package does it
+    in float64 numpy).
+  * The MLMC difference-operator deflation: block power iteration with
+    plain Rayleigh--Ritz (``subspace_iteration_largest``), on the host in
+    numpy with the operator applied to column blocks on the device, as in
+    the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import scipy.linalg as sla
@@ -53,6 +66,209 @@ def _harmonic_small_solve(A: np.ndarray, B: np.ndarray, eps: float):
 
 def _row_norms(X: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((X.real ** 2 + X.imag ** 2).sum(-1))
+
+
+def _apply_cols(matvec: Callable, W: np.ndarray, dtype: torch.dtype,
+                device) -> np.ndarray:
+    """Apply an operator on (m, n) row batches to the columns of a host
+    complex (n, m) matrix."""
+    rows = torch.from_numpy(np.ascontiguousarray(W.T)).to(device=device, dtype=dtype)
+    return matvec(rows).cpu().numpy().T
+
+
+def rayleigh_ritz_hermitian(matvec: Callable, V: np.ndarray, k: int,
+                            dtype: torch.dtype, device,
+                            which: str = "largest_abs") -> EigResult:
+    """Plain Rayleigh--Ritz on the host (extremal eigenvalues, where it is
+    ghost-free)."""
+    W = _orth(V)
+    HW = _apply_cols(matvec, W, dtype, device)
+    M = W.conj().T @ HW
+    M = 0.5 * (M + M.conj().T)
+    theta, Y = np.linalg.eigh(M)
+    if which == "largest_abs":
+        order = np.argsort(-np.abs(theta))[:k]
+    elif which == "smallest_abs":
+        order = np.argsort(np.abs(theta))[:k]
+    else:
+        raise ValueError(which)
+    theta = theta[order]
+    X = W @ Y[:, order]
+    R = _apply_cols(matvec, X, dtype, device) - X * theta[None, :]
+    return EigResult(values=theta, vectors=X, resnorms=np.linalg.norm(R, axis=0))
+
+
+def subspace_iteration_largest(matvec: Callable, n: int, k: int, *,
+                               dtype: torch.dtype, device, seed: int = 11,
+                               rounds: int = 10, buffer: Optional[int] = None,
+                               tol: float = 0.0) -> EigResult:
+    """Largest-|lambda| eigenpairs by block power iteration + Rayleigh--Ritz
+    (the MLMC difference-operator deflation, which needs loose accuracy)."""
+    m = buffer if buffer is not None else max(k + 2, int(round(1.25 * k)))
+    m = min(m, n)
+    rng = np.random.default_rng(seed)
+    V = rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m))
+    result = None
+    for _ in range(rounds):
+        V = _apply_cols(matvec, _orth(V), dtype, device)
+        result = rayleigh_ritz_hermitian(matvec, V, m, dtype, device, "largest_abs")
+        V = result.vectors
+        if tol > 0 and float(np.max(result.resnorms[:k])) < tol:
+            break
+    return EigResult(result.values[:k], result.vectors[:, :k], result.resnorms[:k])
+
+
+# ---- device-resident Ritz blocks: (m, n) row tensors -------------------------
+
+def _gram(V: torch.Tensor) -> torch.Tensor:
+    """G[i, j] = <v_i, v_j> of the rows of V."""
+    return V.conj() @ V.T
+
+
+def _project(matvec: Callable, V: torch.Tensor, T: torch.Tensor):
+    """Basis change W_cols = V_cols @ T (rows: W = T^T V), U = H W, and the
+    projections A = U^H W, B = U^H U."""
+    W = T.T @ V
+    U = matvec(W)
+    return W, U, U.conj() @ W.T, U.conj() @ U.T
+
+
+def _recombine(W: torch.Tensor, U: torch.Tensor, Y: torch.Tensor):
+    """X_cols = W_cols @ Y and H X_cols = U_cols @ Y (no matvec), rows
+    normalized; returns (X, HX, Rayleigh quotients, residual norms)."""
+    X = Y.T @ W
+    HX = Y.T @ U
+    inv_nrm = (1.0 / torch.clamp(_row_norms(X), min=1e-30))[:, None]
+    X = X * inv_nrm
+    HX = HX * inv_nrm
+    theta = (X.conj() * HX).sum(-1).real
+    res = _row_norms(HX - theta[:, None] * X)
+    return X, HX, theta, res
+
+
+def _whitening(G: torch.Tensor, eps: float) -> torch.Tensor:
+    """T = chol(G)^{-H} for the Gram matrix G = V V^H (regularized by eps
+    times its mean diagonal): the rows of T^T V are orthonormal."""
+    m = G.shape[0]
+    eye = torch.eye(m, dtype=G.dtype, device=G.device)
+    Gs = 0.5 * (G + G.mH)
+    scale = Gs.diagonal().real.sum() / m
+    L = torch.linalg.cholesky(Gs + (eps * scale) * eye)
+    return torch.linalg.solve_triangular(L.mH, eye, upper=True)
+
+
+def _harmonic_round(matvec: Callable, Vd: torch.Tensor):
+    """One harmonic-Ritz round on the device: whiten, project, solve the
+    m x m pencil (A = U^H W, B = U^H U) for the values nearest 0, recombine.
+    Returns the new (m, n) rows and the stacked (2, m) (theta, res)."""
+    m = Vd.shape[0]
+    eps = 1e3 * torch.finfo(real_dtype(Vd.dtype)).eps
+    eye = torch.eye(m, dtype=Vd.dtype, device=Vd.device)
+    W, U, A, B = _project(matvec, Vd, _whitening(_gram(Vd), eps))
+    A = 0.5 * (A + A.mH)
+    B = 0.5 * (B + B.mH)
+    scb = B.diagonal().real.sum() / m
+    Lb = torch.linalg.cholesky(B + (eps * scb) * eye)
+    M = torch.linalg.solve_triangular(Lb, A, upper=False)
+    M = torch.linalg.solve_triangular(Lb, M.mH, upper=False).mH
+    M = 0.5 * (M + M.mH)
+    mu, Z = torch.linalg.eigh(M)
+    Y = torch.linalg.solve_triangular(Lb.mH, Z, upper=True)
+    amu = mu.abs()
+    order = torch.argsort(torch.where(amu > 0, 1.0 / amu, torch.full_like(amu, np.inf)),
+                          stable=True)
+    X, _, theta, res = _recombine(W, U, Y[:, order])
+    return X, torch.stack([theta, res])
+
+
+class DeviceEigResult(NamedTuple):
+    values: np.ndarray      # (k,) real (host)
+    vectors: torch.Tensor   # (k, n) rows on the operator's device
+    resnorms: np.ndarray    # (k,) (host)
+
+
+def inverse_iteration_smallest_device(
+    matvec: Callable,
+    apply_inv: Callable,
+    n: int,
+    k: int,
+    *,
+    dtype: torch.dtype,
+    device,
+    seed: int = 5,
+    rounds: int = 6,
+    buffer: Optional[int] = None,
+    tol: float = 0.0,
+    V0: Optional[np.ndarray] = None,
+    warm_filter_degree: int = 0,
+) -> DeviceEigResult:
+    """Smallest-|lambda| eigenpairs of a Hermitian H by inverse subspace
+    iteration V <- H^{-1} V (``apply_inv`` on (m, n) rows), the subspace
+    resident on ``device``.
+
+    The start block is ``V0`` (host (n, m) complex, orthonormalized) when
+    given, otherwise an i.i.d. Gaussian (m, n) block from a generator on
+    ``device`` seeded with ``seed``; ``warm_filter_degree`` > 0 runs one
+    Chebyshev filter pass in t = lambda^2 over that random block first.
+    Each round is one batched apply_inv and one harmonic-Ritz round. With
+    ``tol`` > 0 it stops once the k smallest residuals are below tol AND the
+    k smallest |theta| moved by less than sqrt(tol) relative since the
+    previous round (small residuals alone do not prove that no interior
+    mode is still missing from the subspace). The result comes from a
+    plain Rayleigh--Ritz on the whitened basis (the harmonic recombination
+    is not unitary), and pairs with res > 0.5 |theta| -- ghosts of plain RR
+    on an indefinite operator -- are passed over while enough genuine ones
+    remain."""
+    m = buffer if buffer is not None else max(k + 2, int(round(1.25 * k)))
+    m = min(m, n)
+    if V0 is not None:
+        m = V0.shape[1]
+        Vd = torch.from_numpy(np.ascontiguousarray(_orth(V0).T)).to(
+            device=device, dtype=dtype)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        rdt = real_dtype(dtype)
+        re = torch.randn((m, n), generator=gen, dtype=rdt, device=device)
+        im = torch.randn((m, n), generator=gen, dtype=rdt, device=device)
+        Vd = torch.complex(re, im)
+        if warm_filter_degree:
+            lam = power_bound(matvec, n, dtype, device, seed=seed + 17)
+            b = lam * lam
+            # cut at ~1% of lam_max: the near-critical modes sit orders of
+            # magnitude below the bulk edge
+            a = max((1.0e-2 * lam) ** 2, b * 1.0e-12)
+            Vd = _chebyshev_filter(matvec, Vd, a, b, int(warm_filter_degree))
+    prev_theta = None
+    for _ in range(rounds):
+        Vd, diag_d = _harmonic_round(matvec, apply_inv(Vd))
+        diag = diag_d.double().cpu().numpy()          # one read per round
+        theta_r = np.abs(diag[0])[:k]
+        if tol > 0 and float(np.max(diag[1][:k])) < tol:
+            if prev_theta is not None and float(np.max(
+                np.abs(np.sort(theta_r) - np.sort(prev_theta))
+                / np.maximum(np.sort(prev_theta), 1e-300)
+            )) < np.sqrt(max(tol, 1e-12)):
+                break
+        prev_theta = theta_r
+    # final plain Rayleigh--Ritz: Z is unitary, so the rows X = Z^T W are
+    # orthonormal to working precision
+    eps = 1e3 * torch.finfo(real_dtype(dtype)).eps
+    T = _whitening(_gram(Vd).to(torch.complex128), eps).to(dtype)
+    W, U, M, _ = _project(matvec, Vd, T)
+    M = 0.5 * (M + M.mH)
+    mu, Z = torch.linalg.eigh(M)
+    order = torch.argsort(mu.abs(), stable=True)
+    Vd, _, theta_d, res_d = _recombine(W, U, Z[:, order])
+    diag = torch.stack([theta_d, res_d]).double().cpu().numpy()
+    theta, res = diag[0], diag[1]
+    ok = res <= 0.5 * np.abs(theta)
+    sel = [i for i in range(len(theta)) if ok[i]][:k]
+    if len(sel) < k:
+        sel += [i for i in range(len(theta)) if not ok[i]][: k - len(sel)]
+        sel = sorted(sel)
+    idx = np.asarray(sel, dtype=np.int64)
+    return DeviceEigResult(theta[idx], Vd[torch.from_numpy(idx).to(Vd.device)], res[idx])
 
 
 def power_bound(matvec: Callable, n: int, dtype: torch.dtype, device,

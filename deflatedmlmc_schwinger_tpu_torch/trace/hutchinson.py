@@ -2,15 +2,12 @@
 deflatedmlmc_schwinger_tpu/trace/hutchinson.py).
 
 MG setup -> deflation precompute -> rough trace -> batched probe sampling
-with the stderr stopping rule -> result dict with the analytic complexity
-model. Probes are solved a batch at a time by one MG-preconditioned FGMRES
-call. The moments stay on the device and the stop/stall flags are read two
-batches late (under ConfirmedStop), through an asynchronous copy, so the
-host reading a flag does not hold up the next batches and a matched run
-stops at the same sample count as the JAX package.
+with the stderr stopping rule (trace/stats.py sample_to_stop) -> result
+dict with the analytic complexity model. Probes are solved a batch at a
+time by one MG-preconditioned FGMRES call.
 
 Not ported yet: the mesh and lattice-sharded branches, and checkpoint
-resume.
+resume (ROADMAP.md queue: checkpoints; parallel).
 """
 
 from __future__ import annotations
@@ -34,14 +31,7 @@ from deflatedmlmc_schwinger_tpu_torch.trace.deflation import (
     hutchinson_deflation,
 )
 from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
-from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
-    ConfirmedStop,
-    check_stalled,
-    device_moments_init,
-    device_moments_to_host,
-    device_moments_update,
-    device_stop_and_stalled,
-)
+from deflatedmlmc_schwinger_tpu_torch.trace.stats import check_stalled, sample_to_stop
 from deflatedmlmc_schwinger_tpu_torch.utils.flops import flops_vcycle, level_nnz
 from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
 
@@ -62,26 +52,6 @@ def hutchinson_step_batch(op, solver: MGSolver, cfg: TraceConfig,
     if not gather:
         return e, res.iters, res.stalled
     return e.cpu().numpy(), res.iters.cpu().numpy(), res.stalled.cpu().numpy()
-
-
-class _HostCopy:
-    """A small device tensor copied to the host without waiting for work
-    queued after it: pinned buffer + non-blocking copy + event."""
-
-    def __init__(self, t: torch.Tensor):
-        self.event = None
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t.clone()
-
-    def tolist(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.tolist()
 
 
 def hutchinson(
@@ -114,6 +84,8 @@ def hutchinson(
 
     with timer.phase("defl_setup"):
         defl = hutchinson_deflation(op, solver, cfg)
+    if defl.values is not None:
+        log(f"deflation |eigs|: {np.abs(defl.values)}  tr1={defl.tr1:.6f}")
 
     n = op.n
     dtype = op.dtype
@@ -134,35 +106,15 @@ def hutchinson(
     probes = make_probe_source(probe_source, cfg.seed, device)
     solver.coarsest_lev_iters[0] = 0
     B = int(cfg.probe_batch)
+
+    def step(start: int):
+        return hutchinson_step_batch(op, solver, cfg, defl, probes(start, B, n, dtype),
+                                     gather=False)
+
     with timer.phase("sampling"):
-        dm = device_moments_init(real_dtype(dtype), device)
-        stall_acc = torch.zeros((), dtype=torch.int32, device=device)
-        inflight = []
-        stopper = ConfirmedStop(cfg.stop_confirm)
-        start = 0
-        while start < cfg.max_nr_ests:
-            X = probes(start, B, n, dtype)
-            e, iters, stall = hutchinson_step_batch(op, solver, cfg, defl, X,
-                                                    gather=False)
-            dm = device_moments_update(dm, e, iters)
-            stall_acc = stall_acc + stall.sum().to(torch.int32)
-            start += B
-            flag = device_stop_and_stalled(dm, rough_trace_tol, cfg.min_nr_ests,
-                                           stall_acc)
-            inflight.append((start, _HostCopy(flag)))
-            # flags are read two batches late; consecutive reads are one
-            # batch apart, which is what the confirmation guard expects
-            if len(inflight) > 2:
-                seen, pending = inflight.pop(0)
-                stop, nstall = pending.tolist()
-                check_stalled(nstall, seen, cfg.max_stalled_frac, "hutchinson sampling")
-                if stopper(bool(stop), seen):
-                    break
-        moments = device_moments_to_host(dm)
-        function_iters = int(dm.iters.item())
-        nstall = int(stall_acc.item())
-        check_stalled(nstall, start, cfg.max_stalled_frac, "hutchinson sampling")
-        stalled_rows += nstall
+        moments, function_iters, nstall = sample_to_stop(
+            step, cfg, rough_trace_tol, "hutchinson sampling", real_dtype(dtype), device)
+    stalled_rows += nstall
 
     nnz = level_nnz(hier)
     result = dict(
@@ -172,6 +124,10 @@ def hutchinson(
         function_iters=function_iters,
         rough_trace=rough_trace,
         stalled_rows=stalled_rows,
+        # the deflation (basis values and residuals) and its stalled
+        # exact-correction solves, which stalled_rows does not count
+        deflation=defl,
+        defl_stalled_rows=defl.stalled_rows,
     )
     total = flops_vcycle(nnz, solver.cfg.smooth_iters, 0, 0) * function_iters
     total += nnz[-1] * int(solver.coarsest_lev_iters[0])

@@ -10,7 +10,7 @@ sampling loop reads only one small flag tensor per batch.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -103,6 +103,26 @@ def check_stalled(nstalled: int, nsamples: int, max_frac: float, where: str) -> 
         )
 
 
+class HostCopy:
+    """A small device tensor copied to the host without waiting for work
+    queued after it: pinned buffer + non-blocking copy + event."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+
+    def tolist(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.tolist()
+
+
 class DeviceMoments(NamedTuple):
     count: torch.Tensor   # () real
     mean_re: torch.Tensor
@@ -162,3 +182,41 @@ def device_moments_to_host(dm: DeviceMoments) -> RunningMoments:
         mean=complex(float(dm.mean_re.item()), float(dm.mean_im.item())),
         m2=float(dm.m2.item()),
     )
+
+
+def sample_to_stop(step: Callable[[int], tuple], cfg, tol_target: float, where: str,
+                   rdtype: torch.dtype, device):
+    """Sample batches of ``cfg.probe_batch`` until the standard error falls
+    below ``tol_target`` (with at least ``cfg.min_nr_ests`` samples) or
+    ``cfg.max_nr_ests`` is reached. ``step(start)`` returns the batch's
+    device tensors (estimates, solver iterations, stalled flags).
+
+    The moments stay on the device. The [stop, stalled] flags are copied to
+    the host asynchronously and read two batches late, so the host never
+    holds up the batches in flight; consecutive reads are one batch apart,
+    which is what ConfirmedStop (cfg.stop_confirm) expects, and a matched
+    run stops at the same sample count as the JAX package. Raises when more
+    than ``cfg.max_stalled_frac`` of the rows stalled. Returns (host
+    RunningMoments, total iterations, stalled rows)."""
+    B = int(cfg.probe_batch)
+    dm = device_moments_init(rdtype, device)
+    stall_acc = torch.zeros((), dtype=torch.int32, device=device)
+    inflight = []
+    stopper = ConfirmedStop(cfg.stop_confirm)
+    start = 0
+    while start < cfg.max_nr_ests:
+        e, iters, stall = step(start)
+        dm = device_moments_update(dm, e, iters)
+        stall_acc = stall_acc + stall.sum().to(torch.int32)
+        start += B
+        flag = device_stop_and_stalled(dm, tol_target, cfg.min_nr_ests, stall_acc)
+        inflight.append((start, HostCopy(flag)))
+        if len(inflight) > 2:
+            seen, pending = inflight.pop(0)
+            stop, nstall = pending.tolist()
+            check_stalled(nstall, seen, cfg.max_stalled_frac, where)
+            if stopper(bool(stop), seen):
+                break
+    nstall = int(stall_acc.item())
+    check_stalled(nstall, start, cfg.max_stalled_frac, where)
+    return device_moments_to_host(dm), int(dm.iters.item()), nstall
