@@ -6,12 +6,22 @@
 1. Builds the stencil kernels from deflatedmlmc_schwinger_tpu_torch/csrc
    with nvcc (sm_90a) and prints the build time.
 2. Holds each kernel (K1 stencil_matvec, K2 stencil_residual, K3
-   stencil_poly_smooth with and without the residual) to its plain PyTorch
-   version on the card: at the G301 shapes (64 probes, 256^2, complex64) to
-   1e-5 relative, and on a small non-square complex128 lattice to 1e-12;
-   then at the G102 shapes (128 probes, 128^2, complex64, K3 with the
-   depth-16 sampling and depth-4 setup roots) to 1e-5. Times each kernel
-   and its plain version with CUDA events.
+   stencil_poly_smooth, the tiled kernel that takes several roots per
+   launch, with and without the residual) to its plain PyTorch version on
+   the card: at the G301 shapes (64 probes, 256^2, complex64) to 1e-5
+   relative, and on a small non-square complex128 lattice to 1e-12; then at
+   the G102 shapes (128 probes, 128^2, complex64, K3 with the depth-16
+   sampling and depth-4 setup roots) to 1e-5. Times each kernel and its
+   plain version with CUDA events, K3 also beside the earlier kernel with
+   one launch per root (stencil_poly_smooth_per_root), and K1 and K2 beside
+   the torch.sparse CSR call that computes each (A @ v, and addmm with
+   alpha = -1) on the same operator. Computes each kernel's
+   bound from the shapes: the larger of its bytes (each operand once) over
+   HBM_BYTES_PER_S and its flops over FP32_FLOPS_PER_S.
+   Then holds the tiled K3 to its plain version on shapes that stress its
+   windows: a lattice smaller than a window, one that no tile divides,
+   batches that the probes of a pass do not divide, depths 1, 5, 7 and 16,
+   in complex64 (1e-5) and complex128 (1e-12).
 3. Runs gateway.G301 (deflated Hutchinson, generated 256^2 lattice) on
    cuda:0 to its stopping rule, checks that every kernel was launched on
    that path, that no more probe rows stalled than the configuration
@@ -24,7 +34,8 @@
    and EXAMPLE_002 (the G202 path: deflated MG-MLMC, level 1 skipped, level
    2 dense-exact). Each path must launch every kernel, keep its stalled
    rows (deflation-correction solves included) within max_stalled_frac,
-   and have k finite deflation eigenvalues.
+   and have k finite deflation eigenvalues. On no path may the per-root
+   K3 be launched: K3's launches are launches of the tiled kernel.
 5. Computes the exact displaced trace tr(D^{-1} Pi^T) of the same operator
    in complex128 on the card (dense LU, column blocks) and checks that both
    estimates lie within 5 of their own reported standard errors of it.
@@ -53,6 +64,21 @@ FLAGSHIP_MATRIX = "generated:128x128:beta=5.0:seed=11"
 FLAGSHIP_MASS = -0.17
 ORACLE_SIGMAS = 5.0
 KERNEL_SOURCE = "deflatedmlmc_schwinger_tpu_torch/csrc/stencil.cu"
+# The card's data-sheet peaks the bounds are reckoned against (NVIDIA H100
+# SXM): device memory, and float32 outside the tensor cores (the stencil's
+# coefficients differ per site, so it is no matrix product).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# Real flops per site and probe: 18 complex multiply-adds for D; K2 adds two
+# complex subtractions; a K3 root scales two values (12), adds them to x (4)
+# and, where it applies D, subtracts D step from cur (144 + 4).
+FLOPS_D = 144
+FLOPS_K2 = FLOPS_D + 4
+FLOPS_K3_ROOT = 12 + 4 + FLOPS_D + 4
+FLOPS_K3_LAST_NO_D = 12 + 4
+STRESS_LATTICES = ("generated:24x40:beta=3.0:seed=5", "generated:20x52:beta=3.0:seed=6")
+STRESS_BATCHES = (3, 37)
+STRESS_DEPTHS = (1, 5, 7, 16)
 REPLACES = {
     "stencil_matvec": "deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:86",
     "stencil_residual": "deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:93",
@@ -93,16 +119,32 @@ def _randn(shape, dtype, gen, device):
     return torch.randn(shape, dtype=dtype, generator=gen, device=device)
 
 
+def _bound(n_blocks: int, flops_per_site_probe: int, B: int, nx: int, nt: int,
+           itemsize: int):
+    """(bound ms, bound by): the least time for ``n_blocks`` probe blocks
+    (B, 2, nx, nt) and the 18 used coefficient fields moved once, and for
+    the flops, at the card's data-sheet peaks."""
+    sites = nx * nt
+    nbytes = (n_blocks * B * 2 + 18) * sites * itemsize
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_flops = 1e3 * flops_per_site_probe * sites * B / FP32_FLOPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
 def _cases(sk, roots_by_depth):
-    """(name, kernel, plain version) for K1, K2 and K3 at each root depth,
-    with and without the residual."""
+    """(name, kernel, plain version, other, blocks moved, flops per site and
+    probe) for K1, K2 and K3 at each root depth, with and without the
+    residual. ``other`` is a second implementation timed beside the kernel:
+    the per-root kernel for K3, None else."""
     cases = [
         ("stencil_matvec",
          lambda C_, a, b, X, T: sk.stencil_matvec(C_, a, X, T),
-         lambda C_, a, b, X, T: sk.stencil_matvec_plain(C_, a, X, T)),
+         lambda C_, a, b, X, T: sk.stencil_matvec_plain(C_, a, X, T),
+         None, 2, FLOPS_D),
         ("stencil_residual",
          lambda C_, a, b, X, T: sk.stencil_residual(C_, a, b, X, T),
-         lambda C_, a, b, X, T: sk.stencil_residual_plain(C_, a, b, X, T)),
+         lambda C_, a, b, X, T: sk.stencil_residual_plain(C_, a, b, X, T),
+         None, 3, FLOPS_K2),
     ]
     for depth, roots in roots_by_depth.items():
         cases += [
@@ -110,10 +152,16 @@ def _cases(sk, roots_by_depth):
              lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth(
                  C_, a, r, X, T, with_residual=True),
              lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth_plain(
-                 C_, a, r, X, T, with_residual=True)),
+                 C_, a, r, X, T, with_residual=True),
+             lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth_per_root(
+                 C_, a, r, X, T, with_residual=True),
+             3, depth * FLOPS_K3_ROOT),
             (f"stencil_poly_smooth depth {depth} (no residual)",
              lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth(C_, a, r, X, T)[0],
-             lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth_plain(C_, a, r, X, T)[0]),
+             lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth_plain(C_, a, r, X, T)[0],
+             lambda C_, a, b, X, T, r=roots: sk.stencil_poly_smooth_per_root(
+                 C_, a, r, X, T)[0],
+             2, (depth - 1) * FLOPS_K3_ROOT + FLOPS_K3_LAST_NO_D),
         ]
     return cases
 
@@ -121,11 +169,13 @@ def _cases(sk, roots_by_depth):
 def _check(label, cases, C, v, w, nx, nt, small=None) -> dict:
     """Each case against its plain version (c64 to TOL_C64; on ``small`` =
     (C, v, w, nx, nt) in c128 to TOL_C128), timed with CUDA events.
-    Returns {case name: (max abs err, rel err, kernel ms, plain ms)}."""
+    Returns {case name: dict(max_abs_err, rel_err, ms, plain_ms, other_ms,
+    bound_ms, bound_by)}."""
     import torch
 
     out = {}
-    for name, kern, plain in cases:
+    B = v.shape[0]
+    for name, kern, plain, other, n_blocks, flops in cases:
         got = _flat(kern(C, v, w, nx, nt))
         ref = _flat(plain(C, v, w, nx, nt))
         torch.cuda.synchronize()
@@ -146,11 +196,106 @@ def _check(label, cases, C, v, w, nx, nt, small=None) -> dict:
             if not torch.isfinite(sgot).all() or err128 > TOL_C128:
                 raise RuntimeError(f"{label} {name}: c128 rel {err128:.3e} > {TOL_C128:g}")
             msg += f", c128 24x40 rel err {err128:.3e}"
+        other_ms = None
+        if other is not None:
+            oerr = _rel_err(_flat(other(C, v, w, nx, nt)), ref)
+            if oerr > TOL_C64:
+                raise RuntimeError(f"{label} {name}: the per-root kernel disagrees with "
+                                   f"the plain version (c64 rel {oerr:.3e})")
+            other_ms = _time_ms(lambda: other(C, v, w, nx, nt))
         ms = _time_ms(lambda: kern(C, v, w, nx, nt))
         plain_ms = _time_ms(lambda: plain(C, v, w, nx, nt))
-        print(f"{msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = (abs64, err64, ms, plain_ms)
+        bound_ms, bound_by = _bound(n_blocks, flops, B, nx, nt, C.element_size())
+        msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound")
+        if other_ms is not None:
+            msg += f", per-root kernel {other_ms:.4f} ms"
+        print(msg)
+        out[name] = dict(max_abs_err=abs64, rel_err=err64, ms=ms, plain_ms=plain_ms,
+                         other_ms=other_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def _library_ms(op, v, w) -> dict:
+    """The yardsticks of K1 and K2: the one torch.sparse call that computes
+    each with the same operator (CSR) on the same blocks, which the port
+    never makes: ``A @ v`` for K1, ``torch.addmm(b, A, x, alpha=-1)`` for K2.
+    Returns {kernel name: (ms, max abs difference from the kernel)}, with
+    (None, reason) where the installed PyTorch has no such complex CSR
+    product on the card."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.io import csr_from_stencil
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+
+    A = csr_from_stencil(op.host_coeffs())
+    At = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype("int64")), torch.from_numpy(A.indices.astype("int64")),
+        torch.from_numpy(A.data), size=A.shape).to(v.device)
+    vt, wt = v.T.contiguous(), w.T.contiguous()
+    calls = {
+        "stencil_matvec": (lambda: At @ vt,
+                           lambda: sk.stencil_matvec(op.coeffs, v, op.nx, op.nt)),
+        "stencil_residual": (lambda: torch.addmm(vt, At, wt, alpha=-1),
+                             lambda: sk.stencil_residual(op.coeffs, v, w, op.nx, op.nt)),
+    }
+    out = {}
+    for name, (library, kernel) in calls.items():
+        try:
+            y = library()
+        except (RuntimeError, NotImplementedError) as e:
+            reason = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+            print(f"[kernels] {name}: no torch.sparse CSR call for it here: {reason}")
+            out[name] = (None, reason)
+            continue
+        diff = float((y.T - kernel()).abs().max())
+        if not diff <= 1e-4:
+            raise RuntimeError(f"{name}: the torch.sparse call computes something else "
+                               f"(max abs difference {diff:.3e})")
+        out[name] = (_time_ms(library), diff)
+    return out
+
+
+def check_window_stress(device) -> int:
+    """The tiled K3 against its plain version where its window logic is
+    stressed; returns the number of cases."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    worst = {torch.complex64: 0.0, torch.complex128: 0.0}
+    n = 0
+    for spec in STRESS_LATTICES:
+        for dtype, tol in ((torch.complex64, TOL_C64), (torch.complex128, TOL_C128)):
+            op, _ = load_operator(spec, -0.2, dtype=dtype, device=device)
+            roots = {m: _roots(op, m) for m in STRESS_DEPTHS}
+            for B in STRESS_BATCHES:
+                r = _randn((B, op.n), dtype, gen, device)
+                for m in STRESS_DEPTHS:
+                    for wr in (True, False):
+                        got = sk.stencil_poly_smooth(op.coeffs, r, roots[m], op.nx, op.nt,
+                                                     with_residual=wr)
+                        ref = sk.stencil_poly_smooth_plain(op.coeffs, r, roots[m], op.nx,
+                                                           op.nt, with_residual=wr)
+                        torch.cuda.synchronize()
+                        for g, f, what in zip(got, ref, ("x", "residual")):
+                            if f is None:
+                                if g is not None:
+                                    raise RuntimeError("a residual where none was asked for")
+                                continue
+                            err = _rel_err(g, f)
+                            worst[dtype] = max(worst[dtype], err)
+                            if not torch.isfinite(g).all() or err > tol:
+                                raise RuntimeError(
+                                    f"tiled K3 {what} on {spec} {dtype} B={B} depth {m} "
+                                    f"residual={wr}: rel err {err:.3e} > {tol:g}")
+                        n += 1
+    print(f"[kernels stress] tiled K3 on {', '.join(STRESS_LATTICES)}; B in {STRESS_BATCHES}; "
+          f"depths {STRESS_DEPTHS}; with and without residual: {n} cases, worst rel err "
+          f"c64 {worst[torch.complex64]:.3e}, c128 {worst[torch.complex128]:.3e}")
+    return n
 
 
 def _roots(op, depth: int):
@@ -186,7 +331,13 @@ def check_kernels(device) -> dict:
         w = _randn((cfg.probe_batch, op.n), torch.complex64, gen, device)
         results[label] = _check(label, _cases(sk, roots), op.coeffs, v, w, op.nx, op.nt,
                                 small if label == "G301" else None)
+        for name, (lib_ms, lib_note) in _library_ms(op, v, w).items():
+            results[label][name]["library_ms"] = lib_ms
+            if lib_ms is not None:
+                print(f"[kernels {label}] {name}: torch.sparse CSR call {lib_ms:.4f} ms "
+                      f"(max abs difference from the kernel {lib_note:.3e})")
         del op, v, w
+    check_window_stress(device)
     return results
 
 
@@ -196,6 +347,13 @@ def flagship_cfg():
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
 
     return set_params("schwinger128").replace(matrix=FLAGSHIP_MATRIX, mass=FLAGSHIP_MASS)
+
+
+def _no_per_root_launch(label: str, sk) -> None:
+    """K3 on a path is the tiled kernel alone."""
+    n = sk.stencil_poly_smooth_per_root.launches
+    if n:
+        raise RuntimeError(f"{label} launched the per-root K3 {n} times")
 
 
 def run_g301(device) -> dict:
@@ -220,12 +378,14 @@ def run_g301(device) -> dict:
     print("[G301] phase seconds " + " ".join(
         f"{k}={phases.get(k, 0.0):.4f}" for k in ("mg_setup", "defl_setup",
                                                    "rough_trace", "sampling")))
-    print(f"[G301] kernel launches {counts}")
+    print(f"[G301] kernel launches {counts} (stencil_poly_smooth: launches of the tiled "
+          f"kernel, several roots each)")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError("G301 produced a non-finite result")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise RuntimeError(f"G301 did not launch {missing}")
+    _no_per_root_launch("G301", sk)
     solved = result["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
     if result["stalled_rows"] > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{result['stalled_rows']} stalled rows of {solved}")
@@ -278,7 +438,8 @@ def run_flagship(label: str, device):
           f"res <= 0.5|theta|, |theta| in [{min(abs(defl.values)):.4g}, "
           f"{max(abs(defl.values)):.4g}], tr1 {defl.tr1:.6f}")
     print(f"[{label}] phase seconds " + " ".join(f"{n}={t:.4f}" for n, t in phases.items()))
-    print(f"[{label}] kernel launches {counts}")
+    print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the "
+          f"tiled kernel, several roots each)")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError(f"{label} produced a non-finite result")
     if len(defl.values) != k or not all(math.isfinite(x) for x in defl.values):
@@ -286,6 +447,7 @@ def run_flagship(label: str, device):
     missing = [n for n, c in counts.items() if c <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
+    _no_per_root_launch(label, sk)
     if stalled > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {stalled} stalled rows of {solved}")
     return result, counts, wall, stderr
@@ -370,15 +532,28 @@ def main() -> None:
     entries = []
     for name, replaces in REPLACES.items():
         key = name if name != "stencil_poly_smooth" else f"{name} depth 16"
-        abs_err, _, ms, plain_ms = kernels["G102"][key]
         g301_key = name if name != "stencil_poly_smooth" else f"{name} depth 4"
-        g_abs, _, g_ms, g_plain = kernels["G301"][g301_key]
+        k102, k301 = kernels["G102"][key], kernels["G301"][g301_key]
         per_path = {p: c[name] for p, c in counts.items()}
-        entries.append(dict(
+        entry = dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=replaces,
             launches=sum(per_path.values()), launches_per_path=per_path,
-            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, shapes="G102",
-            g301_shapes=dict(max_abs_err=g_abs, ms=g_ms, plain_ms=g_plain)))
+            max_abs_err=k102["max_abs_err"], ms=k102["ms"], plain_ms=k102["plain_ms"],
+            bound_ms=k102["bound_ms"], bound_by=k102["bound_by"],
+            library_ms=k102.get("library_ms"), shapes="G102",
+            g301_shapes={k: k301.get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if name == "stencil_poly_smooth":
+            # launches count the tiled kernel's launches, several roots each
+            entry["per_root_kernel_ms"] = k102["other_ms"]
+            entry["g301_shapes"]["per_root_kernel_ms"] = k301["other_ms"]
+            entry["variants"] = {
+                f"{lbl} {k[len(name) + 1:]}": {f: v[f] for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                | {"per_root_kernel_ms": v["other_ms"]}
+                for lbl, res in kernels.items() for k, v in res.items()
+                if k.startswith(name)}
+        entries.append(entry)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

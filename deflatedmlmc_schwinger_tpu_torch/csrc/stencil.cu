@@ -4,7 +4,10 @@
 // deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:
 //   K1 stencil_matvec   <- _stencil_kernel  (y = D v)
 //   K2 stencil_residual <- _residual_kernel (r = b - D x, one pass)
-//   K3 poly_step        <- _poly_kernel     (one root of x = p(D) r)
+//   K3 poly_tiled       <- _poly_kernel     (up to kMaxFuse roots of
+//                                            x = p(D) r per launch)
+//      poly_step        the earlier K3, one launch per root; kept as the
+//                       yardstick the tiled kernel is timed against
 //
 // Layout: complex tensors are interleaved (float2 / double2). Coefficients
 // C[a, b, k, x, t] have shape (2, 2, 5, X, T); vectors v[p, s, x, t] have
@@ -13,24 +16,52 @@
 // out[i] reads v[(i + d) % n]. The on-site cross-spin coefficient is
 // structurally zero, so a site needs 18 complex multiply-adds per probe.
 //
-// Bound: device-memory bandwidth. Per probe and site the kernel moves two
-// complex inputs and two complex outputs and does 18 complex MACs (about
-// 4.5 flop per byte in complex64), far below the card's ridge point. The
-// design therefore minimises bytes: one thread owns one (x, t) site for
-// both output spins, loads the site's 18 coefficients into registers once
-// and reuses them for a chunk of probes (blockIdx.y), so coefficient
-// traffic is amortised over the chunk. Threads of a warp own consecutive t,
-// so every tap's load is coalesced; the neighbour re-reads of a row hit L1/L2
-// instead of device memory. Wrap-around is index arithmetic, so any X, T is
-// accepted. The kernels allocate nothing and launch on the caller's stream.
+// Bounds (each input read once, each output written once, against the
+// card's device-memory rate and its float32 rate outside the tensor cores;
+// the coefficients differ per site, so this is no matrix product):
 //
-// K3 cannot keep a probe on chip across all roots the way the TPU kernel
-// keeps it in VMEM (one 256^2 complex64 probe is 1 MB), so it is one fused
-// launch per root: read cur (with neighbours) and x, write x += cur/theta and
-// cur' = cur - D(cur/theta) into a second buffer (an in-place update would
-// let a neighbour read a half-updated value).
+// K1, K2: device-memory bandwidth. Per probe and site they move two or
+// three complex pairs and do 18 complex MACs, about 4.5 flop per byte in
+// complex64, far below the ridge. The design minimises bytes: one thread
+// owns one (x, t) site for both output spins, loads the site's 18
+// coefficients into registers once and reuses them for a chunk of probes
+// (blockIdx.y), so coefficient traffic is amortised over the chunk. Threads
+// of a warp own consecutive t, so every tap's load is coalesced; the
+// neighbour re-reads of a row hit L1/L2 instead of device memory.
+// Wrap-around is index arithmetic, so any X, T is accepted.
+//
+// K3: as a function (r in; x and cur out) it moves no more than K2, but it
+// applies D once per root, so from about six roots on its bound is the
+// arithmetic (164 flop per site, probe and root), not the bytes. One launch
+// per root (poly_step) moves 4 probe blocks per root through device memory
+// and is bound by that traffic instead. poly_tiled keeps the recurrence on
+// chip for several roots: a block owns a window of WX x WT sites of the
+// lattice's periodic extension, one thread per window site, and a launch
+// that applies D h times writes the window's inner tile (WX - 2h) x
+// (WT - 2h); the halo of depth h is recomputed by the neighbouring blocks.
+// A thread keeps its own site's cur and its x sum in registers; cur of the
+// window ping-pongs between two shared-memory buffers so that a neighbour
+// never reads a half-updated value, with one barrier per root. The 18
+// coefficients of a site are private to its thread but too many for the
+// register file at 1024 threads, so they sit in shared memory (144 B per
+// site in complex64, the larger part of the block's budget, which is what
+// holds the window to 1024 sites), are loaded once per block and reused
+// over the block's probes, PB probes per pass through them. The loads of
+// the next probes' window and of x are started a root ahead of their use.
+// Measured on an H100 (PERF.md), the kernel is bound by the number of
+// operations its warps execute: the complex arithmetic is 88 fused
+// multiply-adds per site, probe and root, the same count the arithmetic
+// bound assumes, and around them go the shared-memory loads, the halo's
+// repeated sites (more than a third of the window at depth 4) and the
+// per-probe prologue; barriers and device-memory latency add about a third.
+// So the multiply-adds are written out as fma (cfma/cfms), the roots come
+// from shared memory, and global addresses are stepped, not recomputed.
+//
+// The kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -173,8 +204,9 @@ stencil_residual_kernel(const V* __restrict__ C, const V* __restrict__ b,
   }
 }
 
-// K3, one root theta: step = cur * inv (inv = 1/theta); x = step when
-// `first`, else x += step; with kApply, cur_out = cur - D step.
+// K3, one launch per root theta (the yardstick of the tiled kernel):
+// step = cur * inv (inv = 1/theta); x = step when `first`, else x += step;
+// with kApply, cur_out = cur - D step.
 template <typename V, bool kApply>
 __global__ void __launch_bounds__(kThreads)
 poly_step_kernel(const V* __restrict__ C, const V* __restrict__ cur,
@@ -271,6 +303,336 @@ int launch_poly_step(const void* C, const void* cur, void* x, void* cur_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- K3, tiled: several roots per launch ------------------------------------
+
+constexpr int kMaxFuse = 4;  // most roots one launch takes
+
+template <typename V>
+struct InvRoots {
+  V v[kMaxFuse];  // 1 / theta_j, passed to the kernel by value
+};
+
+// The coefficients of output spins 0 and 1 for one (input spin, tap).
+template <typename V>
+struct alignas(16) CoeffPair {
+  V a0, a1;
+};
+
+template <typename V, int WX, int WT, int PB>
+constexpr size_t tiled_smem_bytes() {
+  return static_cast<size_t>(WX) * WT *
+             (9 * sizeof(CoeffPair<V>) + 2 * PB * 2 * sizeof(V)) +
+         kMaxFuse * sizeof(V);
+}
+
+// A global load that stays where it is written: the loads of the next
+// probes' window and of x are started a root or more ahead of their use, and
+// the compiler, short of registers, would otherwise sink them to the use and
+// leave the block waiting on device memory once per pass.
+__device__ __forceinline__ float2 load_ahead(const float2* p) {
+  float2 v;
+  asm volatile("ld.global.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ double2 load_ahead(const double2* p) {
+  double2 v;
+  asm volatile("ld.global.v2.f64 {%0, %1}, [%2];"
+               : "=d"(v.x), "=d"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
+// acc += a * b and acc -= a * b as four fused multiply-adds each. Written
+// out because `acc += a.x * b.x - a.y * b.y` may not be contracted into two
+// of them (it would reassociate the sum) and compiles to six operations,
+// and the tiled kernel is bound by the operations its warps execute.
+template <typename V>
+__device__ __forceinline__ void cfma(V& acc, V a, V b) {
+  acc.x = fma(a.x, b.x, acc.x);
+  acc.x = fma(-a.y, b.y, acc.x);
+  acc.y = fma(a.x, b.y, acc.y);
+  acc.y = fma(a.y, b.x, acc.y);
+}
+
+template <typename V>
+__device__ __forceinline__ void cfms(V& acc, V a, V b) {
+  acc.x = fma(-a.x, b.x, acc.x);
+  acc.x = fma(a.y, b.y, acc.x);
+  acc.y = fma(-a.x, b.y, acc.y);
+  acc.y = fma(-a.y, b.x, acc.y);
+}
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  const int m = i % n;
+  return m < 0 ? m + n : m;
+}
+
+// One block: the window of WX x WT lattice sites (periodic extension) whose
+// inner tile starts at (x0, t0), for probes [blockIdx.y * probes_per_block,
+// ...), PB probes at a time. Thread i owns window site (i / WT, i % WT).
+//
+// Root j: step = cur * inv_j, x += step, and for j < napply
+// cur <- cur - D step, which is valid on the window shrunk by j + 1 on each
+// side. Rows outside that region skip the stencil (a row is a warp); columns
+// outside it compute values that no valid site ever reads. After napply
+// applications the inner tile, napply sites from each edge, is exact.
+// x is read (unless `first`) and written on the tile only, in place; cur_out
+// is written on the tile when the last root applies D (`apply_last`), and
+// must not alias cur_in, whose halo other blocks still read.
+template <typename V, int WX, int WT, int PB>
+__global__ void __launch_bounds__(WX * WT, 1)
+poly_tiled_kernel(const V* __restrict__ C, const V* __restrict__ cur_in,
+                  V* __restrict__ x, V* __restrict__ cur_out,
+                  const InvRoots<V> inv, int nroots, int first, int apply_last,
+                  int probes_per_block, int B, int X, int T) {
+  constexpr int NS = WX * WT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CoeffPair<V>* sC = reinterpret_cast<CoeffPair<V>*>(smem_raw);  // [9][NS]
+  V* sCur = reinterpret_cast<V*>(sC + 9 * NS);  // [2 buffers][PB][2 spins][NS]
+  V* sInv = sCur + 2 * PB * 2 * NS;             // [kMaxFuse]
+
+  const int napply = apply_last ? nroots : nroots - 1;
+  const int tile_x = WX - 2 * napply;
+  const int tile_t = WT - 2 * napply;
+  const int tiles_t = (T + tile_t - 1) / tile_t;
+  const int x0 = (blockIdx.x / tiles_t) * tile_x;
+  const int t0 = (blockIdx.x % tiles_t) * tile_t;
+  const int i = threadIdx.x;
+  const int wi = i / WT;
+  const int wj = i - wi * WT;
+  const int ox = wi - napply;  // position within the tile
+  const int ot = wj - napply;
+  const long long XT = static_cast<long long>(X) * T;
+  const long long site =
+      static_cast<long long>(wrap(x0 + ox, X)) * T + wrap(t0 + ot, T);
+  const bool owner = ox >= 0 && ox < tile_x && ot >= 0 && ot < tile_t &&
+                     x0 + ox < X && t0 + ot < T;
+
+  {
+    CoeffPair<V> cp;
+    cp.a0 = C[site];                // (a, b, k) = (0, 0, 0)
+    cp.a1 = C[15 * XT + site];      // (1, 1, 0)
+    sC[i] = cp;
+#pragma unroll
+    for (int k = 1; k < 5; ++k)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        cp.a0 = C[(b * 5 + k) * XT + site];         // (0, b, k)
+        cp.a1 = C[((2 + b) * 5 + k) * XT + site];   // (1, b, k)
+        sC[(1 + (k - 1) * 2 + b) * NS + i] = cp;
+      }
+  }
+
+  // The inverse roots, read once per root from shared memory (indexing the
+  // by-value struct with the loop counter compiles to a chain of compares).
+  if (i < kMaxFuse) sInv[i] = inv.v[i];
+
+  const int pbeg = blockIdx.y * probes_per_block;
+  const int pend = min(B, pbeg + probes_per_block);
+  const int noff[4] = {1, -1, WT, -WT};  // taps 1..4 within the window
+  const long long pstride = 2 * XT;      // elements per probe
+  // Probe p, spin 0, this thread's site; stepped by PB probes per pass.
+  const V* in_ptr = cur_in + pbeg * pstride + site;
+  V* x_ptr = x + pbeg * pstride + site;
+  V* out_ptr = cur_out + pbeg * pstride + site;
+
+  V nxt[PB][2];
+#pragma unroll
+  for (int q = 0; q < PB; ++q)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      nxt[q][s] = (pbeg + q < pend) ? load_ahead(in_ptr + q * pstride + s * XT)
+                                    : czero<V>();
+
+  for (int p = pbeg; p < pend; p += PB) {
+    V own[PB][2], xacc[PB][2], xold[PB][2];
+#pragma unroll
+    for (int q = 0; q < PB; ++q)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        own[q][s] = nxt[q][s];
+        sCur[(q * 2 + s) * NS + i] = own[q][s];
+        xacc[q][s] = czero<V>();
+        xold[q][s] = czero<V>();
+      }
+    in_ptr += PB * pstride;
+    __syncthreads();
+
+    // The loads for later are spread over the roots, so that a block does
+    // not send all of them at once: the next probes' window after the first
+    // root, x before the last one (both a root's time ahead of their use).
+    const int j_nxt = min(1, nroots - 1);
+    for (int j = 0; j < nroots; ++j) {
+      const V iv = sInv[j];
+      if (j == j_nxt) {
+#pragma unroll
+        for (int q = 0; q < PB; ++q)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            nxt[q][s] = (p + PB + q < pend)
+                            ? load_ahead(in_ptr + q * pstride + s * XT)
+                            : czero<V>();
+      }
+      if (j == nroots - 1) {
+#pragma unroll
+        for (int q = 0; q < PB; ++q)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            xold[q][s] = (!first && owner && p + q < pend)
+                             ? load_ahead(x_ptr + q * pstride + s * XT)
+                             : czero<V>();
+      }
+#pragma unroll
+      for (int q = 0; q < PB; ++q)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) cfma(xacc[q][s], iv, own[q][s]);
+      if (j < napply) {
+        const V* src = sCur + (j & 1) * (PB * 2 * NS);
+        V* dst = sCur + ((j & 1) ^ 1) * (PB * 2 * NS);
+        if (wi > j && wi < WX - 1 - j) {
+          V acc[PB][2];
+          CoeffPair<V> cp = sC[i];
+#pragma unroll
+          for (int q = 0; q < PB; ++q) {
+            acc[q][0] = cmul(cp.a0, own[q][0]);
+            acc[q][1] = cmul(cp.a1, own[q][1]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              cp = sC[(1 + k * 2 + b) * NS + i];
+#pragma unroll
+              for (int q = 0; q < PB; ++q) {
+                const V w = src[(q * 2 + b) * NS + i + noff[k]];
+                cfma(acc[q][0], cp.a0, w);
+                cfma(acc[q][1], cp.a1, w);
+              }
+            }
+#pragma unroll
+          for (int q = 0; q < PB; ++q)
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              cfms(own[q][s], iv, acc[q][s]);  // D step = inv * (D cur)
+              dst[(q * 2 + s) * NS + i] = own[q][s];
+            }
+        }
+        __syncthreads();
+      }
+    }
+
+    if (owner) {
+#pragma unroll
+      for (int q = 0; q < PB; ++q) {
+        if (p + q >= pend) break;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          V xv;
+          xv.x = xold[q][s].x + xacc[q][s].x;
+          xv.y = xold[q][s].y + xacc[q][s].y;
+          x_ptr[q * pstride + s * XT] = xv;
+          if (apply_last) out_ptr[q * pstride + s * XT] = own[q][s];
+        }
+      }
+    }
+    x_ptr += PB * pstride;
+    out_ptr += PB * pstride;
+  }
+}
+
+// Probes per block: the grid is tiles x chunks of probes, one block per SM
+// at a time. Fewer chunks reuse a block's coefficients over more probes;
+// more chunks fill the SMs. Picks the chunk count with the least
+// (waves of blocks) x (probe passes per block + the coefficient load, taken
+// as kCoeffCost passes: 147 KB from L2 against a pass's few microseconds).
+inline int choose_probes_per_block(int B, int tiles, int pb, int sms) {
+  constexpr int kCoeffCost = 1;
+  long long best_cost = -1;
+  int best = B;
+  for (int chunks = 1; chunks <= B && chunks <= 4096; ++chunks) {
+    int ppb = (B + chunks - 1) / chunks;
+    ppb = (ppb + pb - 1) / pb * pb;
+    const long long blocks = static_cast<long long>(tiles) * ((B + ppb - 1) / ppb);
+    const long long waves = (blocks + sms - 1) / sms;
+    const long long cost = waves * (ppb / pb + kCoeffCost);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = ppb;
+    }
+  }
+  return best;
+}
+
+// What a launch needs to know of its device, found at the first launch
+// there: the SM count (by then the kernel's shared-memory attribute is set),
+// and, per number of applications of D, the chunking chosen for the last
+// (B, X, T). A solver launches the same few shapes over and over, so the
+// launcher does no device query and no search on the way.
+constexpr int kMaxDevices = 64;
+
+struct TiledSetup {
+  int sms = 0;  // 0: not yet set up
+  struct Chunking {
+    int B = 0, X = 0, T = 0, ppb = 0;
+  } chunking[kMaxFuse + 1];
+};
+
+template <typename V, int WX, int WT, int PB>
+int launch_poly_tiled(const void* C, const void* cur_in, void* x, void* cur_out,
+                      const double* inv_re_im, int nroots, int first,
+                      int apply_last, int B, int X, int T, void* stream) {
+  if (empty(B, X, T)) return 0;
+  const int napply = apply_last ? nroots : nroots - 1;
+  if (nroots < 1 || nroots > kMaxFuse || 2 * napply >= WX || 2 * napply >= WT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  InvRoots<V> inv;
+  for (int j = 0; j < kMaxFuse; ++j) {
+    inv.v[j].x = static_cast<decltype(inv.v[j].x)>(j < nroots ? inv_re_im[2 * j] : 0.0);
+    inv.v[j].y = static_cast<decltype(inv.v[j].y)>(j < nroots ? inv_re_im[2 * j + 1] : 0.0);
+  }
+  auto kernel = poly_tiled_kernel<V, WX, WT, PB>;
+  constexpr size_t smem = tiled_smem_bytes<V, WX, WT, PB>();
+  const int tile_x = WX - 2 * napply, tile_t = WT - 2 * napply;
+  const int tiles = ((X + tile_x - 1) / tile_x) * ((T + tile_t - 1) / tile_t);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int ppb = 0;
+  {
+    static std::mutex mu;
+    static TiledSetup setups[kMaxDevices];
+    std::lock_guard<std::mutex> lock(mu);
+    TiledSetup& setup = setups[dev];
+    if (setup.sms == 0) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      int sms = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      setup.sms = sms;
+    }
+    TiledSetup::Chunking& ch = setup.chunking[napply];
+    if (ch.B != B || ch.X != X || ch.T != T) {
+      ch.ppb = choose_probes_per_block(B, tiles, PB, setup.sms);
+      ch.B = B;
+      ch.X = X;
+      ch.T = T;
+    }
+    ppb = ch.ppb;
+  }
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>((B + ppb - 1) / ppb));
+  kernel<<<grid, WX * WT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(C), static_cast<const V*>(cur_in),
+      static_cast<V*>(x), static_cast<V*>(cur_out), inv, nroots, first,
+      apply_last, ppb, B, X, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Every entry returns
@@ -311,6 +673,28 @@ int dmlmc_stencil_poly_step_c128(const void* C, const void* cur, void* x,
                                  void* stream) {
   return launch_poly_step<double2>(C, cur, x, cur_out, inv_re, inv_im, first,
                                    apply, B, X, T, stream);
+}
+
+// Tiled K3. `inv_re_im` is a host array of 2 * nroots doubles (re, im of
+// 1 / theta_j), nroots <= kMaxFuse. complex64: window 32 x 32, two probes
+// per pass through the coefficients. complex128 has twice the bytes per
+// site in the same shared memory: window 16 x 32, one probe per pass.
+int dmlmc_stencil_poly_tiled_c64(const void* C, const void* cur_in, void* x,
+                                 void* cur_out, const double* inv_re_im,
+                                 int nroots, int first, int apply_last, int B,
+                                 int X, int T, void* stream) {
+  return launch_poly_tiled<float2, 32, 32, 2>(C, cur_in, x, cur_out, inv_re_im,
+                                              nroots, first, apply_last, B, X,
+                                              T, stream);
+}
+
+int dmlmc_stencil_poly_tiled_c128(const void* C, const void* cur_in, void* x,
+                                  void* cur_out, const double* inv_re_im,
+                                  int nroots, int first, int apply_last, int B,
+                                  int X, int T, void* stream) {
+  return launch_poly_tiled<double2, 16, 32, 1>(C, cur_in, x, cur_out, inv_re_im,
+                                               nroots, first, apply_last, B, X,
+                                               T, stream);
 }
 
 }  // extern "C"

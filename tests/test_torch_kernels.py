@@ -97,6 +97,16 @@ def test_wrappers_refuse_other_devices():
         sk.stencil_residual(C, v, v, 4, 6)
     with pytest.raises(RuntimeError):
         sk.stencil_poly_smooth(C, v, (2.0,), 4, 6)
+    with pytest.raises(RuntimeError):
+        sk.stencil_poly_smooth_per_root(C, v, (2.0,), 4, 6)
+    # no roots: refused before dispatch, on the CPU too
+    c = torch.zeros((2, 2, 5, 4, 6), dtype=torch.complex128)
+    w = torch.zeros((1, 48), dtype=torch.complex128)
+    for fn in (sk.stencil_poly_smooth, sk.stencil_poly_smooth_per_root):
+        with pytest.raises(ValueError):
+            fn(c, w, (), 4, 6)
+        with pytest.raises(ValueError):
+            fn(C, v, (), 4, 6)
 
 
 def test_library_path_keyed_by_sources():
