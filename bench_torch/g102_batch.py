@@ -33,6 +33,39 @@ GROUPS = (  # (label, substrings of the kernel's name), first match wins
 )
 
 
+def report_profile(label: str, prof, wall: float, batches: int) -> None:
+    """Print what a torch.profiler run over ``batches`` batches (``wall``
+    seconds on the host) recorded on the device: busy time per batch, its
+    share of the wall, device operations per batch, and the split by GROUPS."""
+    by_group, total, launches, other = defaultdict(float), 0.0, 0, []
+    for ev in prof.key_averages():
+        # device-side events only: a host operator's entry repeats the
+        # time of the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us <= 0:
+            continue
+        total += dev_us
+        launches += ev.count
+        group = next((g for g, keys in GROUPS if any(k in ev.key for k in keys)), "other")
+        by_group[group] += dev_us
+        if group == "other":
+            other.append((dev_us, ev.key))
+    print(f"[profile] {label}: {1e3 * wall / batches:.2f} ms per batch under the profiler, "
+          f"device busy {1e-3 * total / batches:.2f} ms per batch "
+          f"({total / (1e4 * wall):.1f}% of it), {launches / batches:.0f} device "
+          f"operations per batch")
+    if total <= 0:
+        print("[profile] the profiler recorded no device time")
+        return
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {label}:   {g}: {1e-3 * us / batches:.3f} ms per batch, "
+              f"{100 * us / total:.1f}% of device time")
+    for us, key in sorted(other, reverse=True)[:6]:
+        print(f"[profile] {label}:     other: {key[:90]}: {1e-3 * us / batches:.3f} ms per batch")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("g102_batch: needs a CUDA card")
@@ -103,33 +136,7 @@ def main() -> None:
             t = time.perf_counter()
             batches(WARMUP, BATCHES)
             wall = time.perf_counter() - t
-        by_group, total, launches, other = defaultdict(float), 0.0, 0, []
-        for ev in prof.key_averages():
-            # device-side events only: a host operator's entry repeats the
-            # time of the kernels it launched
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = ev.self_device_time_total
-            if dev_us <= 0:
-                continue
-            total += dev_us
-            launches += ev.count
-            group = next((g for g, keys in GROUPS if any(k in ev.key for k in keys)), "other")
-            by_group[group] += dev_us
-            if group == "other":
-                other.append((dev_us, ev.key))
-        print(f"[profile] {label}: {1e3 * wall / BATCHES:.2f} ms per batch under the profiler, "
-              f"device busy {1e-3 * total / BATCHES:.2f} ms per batch "
-              f"({total / (1e4 * wall):.1f}% of it), {launches / BATCHES:.0f} device "
-              f"operations per batch")
-        if total <= 0:
-            print("[profile] the profiler recorded no device time")
-            continue
-        for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-            print(f"[profile] {label}:   {g}: {1e-3 * us / BATCHES:.3f} ms per batch, "
-                  f"{100 * us / total:.1f}% of device time")
-        for us, key in sorted(other, reverse=True)[:6]:
-            print(f"[profile] {label}:     other: {key[:90]}: {1e-3 * us / BATCHES:.3f} ms per batch")
+        report_profile(label, prof, wall, BATCHES)
     sk.stencil_poly_smooth = tiled
 
 

@@ -39,7 +39,31 @@
 5. Computes the exact displaced trace tr(D^{-1} Pi^T) of the same operator
    in complex128 on the card (dense LU, column blocks) and checks that both
    estimates lie within 5 of their own reported standard errors of it.
-6. Prints the card's name and power limit, a JSON line with the kernels'
+6. Holds K1 and K2 to their plain versions at the G101/G201 shapes (8
+   probes, 16^2, complex128, to 1e-12) and K1-K3 at the G302 shapes (16
+   probes, 512^2, complex64), each with its bound and, for K1 and K2, the
+   torch.sparse call, as in phase 2.
+7. Runs the unchanged 16^2 profile (set_params("schwinger16") with
+   function_tol 1e-12: complex128, GMRES smoother, k = 64) on a generated
+   16^2 operator (SMALL_MATRIX at SMALL_MASS; schwinger16.mat is not in the
+   repository) through EXAMPLE_001 (the G101 path) and EXAMPLE_002 (the G201
+   path), and holds both within 5 of their own standard errors of the exact
+   tr(D^{-1}) from a complex128 dense inverse on the card. Both must launch
+   K1 and K2; their smoother is GMRES, so K3 is no kernel of these paths.
+8. Runs gateway.G302 (deflated Hutchinson, generated 512^2, 4 levels, 16
+   probes per batch): trace within 1% of the JAX package's recorded
+   115047.9, stalled rows within max_stalled_frac, K1-K3 launched; prints
+   the phase seconds and the peak device memory.
+9. Runs the 256^2 profile again with setup_backend='device' (test vectors
+   and Galerkin products on the card): trace within 1% of 28640.7; prints
+   the outer iterations per probe and the mg_setup seconds of both backends.
+10. Checkpoints: a Hutchinson run on a generated 64^2 lattice cut by
+   max_nr_ests with a checkpoint directory, resumed, and held equal to the
+   uninterrupted run (same nr_ests and iterations, trace to round-off).
+11. Times the fused (z, A z) V-cycle (MGSolver.precond_matvec through
+   fgmres's matvec_precond) beside the precond + matvec pair on one
+   128-probe batch at the G102 shapes; the iteration counts must be equal.
+12. Prints the card's name and power limit, a JSON line with the kernels'
    numbers (launches per path), and as the last line
    {"ok": true, "device": {...}}.
 
@@ -52,10 +76,16 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 REFERENCE_TRACE = 28640.7   # the JAX package's recorded G301 estimate
+REFERENCE_TRACE_G302 = 115047.9   # and its recorded G302 estimate
+# the operator of the 16^2 paths (PERF.md, section 4: why this mass)
+SMALL_MATRIX = "generated:16x16:beta=5.0:seed=1"
+SMALL_MASS = -0.29
+CHECKPOINT_MATRIX = "generated:64x64:beta=5.0:seed=8"
 TOL_C64 = 1e-5
 TOL_C128 = 1e-12
 REPS = 50
@@ -69,6 +99,7 @@ KERNEL_SOURCE = "deflatedmlmc_schwinger_tpu_torch/csrc/stencil.cu"
 # coefficients differ per site, so it is no matrix product).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FP64_FLOPS_PER_S = 34e12    # float64 outside the tensor cores (complex128 shapes)
 # Real flops per site and probe: 18 complex multiply-adds for D; K2 adds two
 # complex subtractions; a K3 root scales two values (12), adds them to x (4)
 # and, where it applies D, subtracts D step from cur (144 + 4).
@@ -123,11 +154,13 @@ def _bound(n_blocks: int, flops_per_site_probe: int, B: int, nx: int, nt: int,
            itemsize: int):
     """(bound ms, bound by): the least time for ``n_blocks`` probe blocks
     (B, 2, nx, nt) and the 18 used coefficient fields moved once, and for
-    the flops, at the card's data-sheet peaks."""
+    the flops, at the card's data-sheet peaks (``itemsize`` 8: complex64,
+    float32 rate; 16: complex128, float64 rate)."""
     sites = nx * nt
     nbytes = (n_blocks * B * 2 + 18) * sites * itemsize
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_flops = 1e3 * flops_per_site_probe * sites * B / FP32_FLOPS_PER_S
+    peak = FP32_FLOPS_PER_S if itemsize == 8 else FP64_FLOPS_PER_S
+    t_flops = 1e3 * flops_per_site_probe * sites * B / peak
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
@@ -166,9 +199,9 @@ def _cases(sk, roots_by_depth):
     return cases
 
 
-def _check(label, cases, C, v, w, nx, nt, small=None) -> dict:
-    """Each case against its plain version (c64 to TOL_C64; on ``small`` =
-    (C, v, w, nx, nt) in c128 to TOL_C128), timed with CUDA events.
+def _check(label, cases, C, v, w, nx, nt, small=None, tol=TOL_C64) -> dict:
+    """Each case against its plain version (to ``tol``, relative; on
+    ``small`` = (C, v, w, nx, nt) in c128 to TOL_C128), timed with CUDA events.
     Returns {case name: dict(max_abs_err, rel_err, ms, plain_ms, other_ms,
     bound_ms, bound_by)}."""
     import torch
@@ -181,12 +214,13 @@ def _check(label, cases, C, v, w, nx, nt, small=None) -> dict:
         torch.cuda.synchronize()
         err64 = _rel_err(got, ref)
         abs64 = float((got - ref).abs().max())
-        msg = f"[kernels {label}] {name}: c64 rel err {err64:.3e} (abs {abs64:.3e})"
+        msg = (f"[kernels {label}] {name}: {str(C.dtype)[6:]} rel err {err64:.3e} "
+               f"(abs {abs64:.3e})")
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{label} {name}: non-finite output")
-        if err64 > TOL_C64:
+        if err64 > tol:
             raise RuntimeError(f"{label} {name}: kernel disagrees with its plain version "
-                               f"(c64 rel {err64:.3e} > {TOL_C64:g})")
+                               f"(rel {err64:.3e} > {tol:g})")
         if small is not None:
             sC, sv, sw, snx, snt = small
             sgot = _flat(kern(sC, sv, sw, snx, snt))
@@ -199,7 +233,7 @@ def _check(label, cases, C, v, w, nx, nt, small=None) -> dict:
         other_ms = None
         if other is not None:
             oerr = _rel_err(_flat(other(C, v, w, nx, nt)), ref)
-            if oerr > TOL_C64:
+            if oerr > tol:
                 raise RuntimeError(f"{label} {name}: the per-root kernel disagrees with "
                                    f"the plain version (c64 rel {oerr:.3e})")
             other_ms = _time_ms(lambda: other(C, v, w, nx, nt))
@@ -306,8 +340,9 @@ def _roots(op, depth: int):
 
 
 def check_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version at the G301 shapes
-    (and on a small c128 lattice) and at the G102 shapes."""
+    """Phases 2 and 6: every kernel against its plain version at the G301
+    shapes (and on a small c128 lattice), the G102 shapes, the G101/G201
+    shapes (complex128, K1 and K2) and the G302 shapes."""
     import torch
 
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
@@ -320,17 +355,22 @@ def check_kernels(device) -> dict:
                            dtype=torch.complex128, device=device)
     small = (sop.coeffs, _randn((3, sop.n), torch.complex128, gen, device),
              _randn((3, sop.n), torch.complex128, gen, device), sop.nx, sop.nt)
-    for label, cfg in (("G301", set_params("schwinger256")), ("G102", flagship_cfg())):
+    for label, cfg in (("G301", set_params("schwinger256")), ("G102", flagship_cfg()),
+                       ("G101", small_cfg()), ("G302", set_params("schwinger512"))):
         op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims,
-                              dtype=torch.complex64, device=device)
-        depths = {cfg.solver.smooth_iters}
-        if cfg.defl_solver is not None:
-            depths.add(cfg.defl_solver.smooth_iters)
+                              dtype=cfg.dtype, device=device)
+        # K3 is a kernel of the polynomial smoother's paths only
+        depths = set()
+        if cfg.solver.smoother == "poly":
+            depths.add(cfg.solver.smooth_iters)
+            if cfg.defl_solver is not None:
+                depths.add(cfg.defl_solver.smooth_iters)
         roots = {dp: _roots(op, dp) for dp in sorted(depths, reverse=True)}
-        v = _randn((cfg.probe_batch, op.n), torch.complex64, gen, device)
-        w = _randn((cfg.probe_batch, op.n), torch.complex64, gen, device)
+        v = _randn((cfg.probe_batch, op.n), cfg.dtype, gen, device)
+        w = _randn((cfg.probe_batch, op.n), cfg.dtype, gen, device)
         results[label] = _check(label, _cases(sk, roots), op.coeffs, v, w, op.nx, op.nt,
-                                small if label == "G301" else None)
+                                small if label == "G301" else None,
+                                TOL_C64 if cfg.dtype == torch.complex64 else TOL_C128)
         for name, (lib_ms, lib_note) in _library_ms(op, v, w).items():
             results[label][name]["library_ms"] = lib_ms
             if lib_ms is not None:
@@ -349,6 +389,16 @@ def flagship_cfg():
     return set_params("schwinger128").replace(matrix=FLAGSHIP_MATRIX, mass=FLAGSHIP_MASS)
 
 
+def small_cfg():
+    """The JAX package's G101/G201 configuration (the schwinger16 profile
+    with function_tol 1e-12), field for field, on the generated 16^2
+    operator."""
+    from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
+
+    return set_params("schwinger16").replace(function_tol=1e-12, matrix=SMALL_MATRIX,
+                                             mass=SMALL_MASS)
+
+
 def _no_per_root_launch(label: str, sk) -> None:
     """K3 on a path is the tiled kernel alone."""
     n = sk.stencil_poly_smooth_per_root.launches
@@ -356,55 +406,65 @@ def _no_per_root_launch(label: str, sk) -> None:
         raise RuntimeError(f"{label} launched the per-root K3 {n} times")
 
 
-def run_g301(device) -> dict:
-    """Phase 3: the port's main path through its gateway entry."""
+def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
+    """A k = 0 Hutchinson path on a generated lattice (G301, G302, and the
+    256^2 profile on the device setup backend) through ``entry(device=...)``,
+    held to the JAX package's recorded trace of that configuration. Returns
+    dict(counts, result, wall, peak_gb)."""
     import math
 
-    from deflatedmlmc_schwinger_tpu_torch import gateway
+    import torch
+
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
-    cfg = gateway.set_params("schwinger256")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
     t0 = time.perf_counter()
-    result = gateway.G301(device=device)
+    result = entry(device=device)
     wall = time.perf_counter() - t0
     counts = sk.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phases = dict(result["timer"].totals)
     tr = complex(result["trace"])
     stderr = result["std_dev"] / math.sqrt(result["nr_ests"])
-    print(f"[G301] trace {tr} stderr {stderr:.6g} (rel {stderr / abs(tr):.3e}) "
+    print(f"[{label}] trace {tr} stderr {stderr:.6g} (rel {stderr / abs(tr):.3e}) "
           f"nr_ests {result['nr_ests']} function_iters {result['function_iters']} "
-          f"stalled_rows {result['stalled_rows']} wall {wall:.3f} s")
-    print("[G301] phase seconds " + " ".join(
+          f"({result['function_iters'] / result['nr_ests']:.2f} outer iterations per probe) "
+          f"stalled_rows {result['stalled_rows']} wall {wall:.3f} s "
+          f"peak device memory {peak_gb:.3f} GB")
+    print(f"[{label}] phase seconds " + " ".join(
         f"{k}={phases.get(k, 0.0):.4f}" for k in ("mg_setup", "defl_setup",
                                                    "rough_trace", "sampling")))
-    print(f"[G301] kernel launches {counts} (stencil_poly_smooth: launches of the tiled "
+    print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the tiled "
           f"kernel, several roots each)")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
-        raise RuntimeError("G301 produced a non-finite result")
+        raise RuntimeError(f"{label} produced a non-finite result")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
-        raise RuntimeError(f"G301 did not launch {missing}")
-    _no_per_root_launch("G301", sk)
+        raise RuntimeError(f"{label} did not launch {missing}")
+    _no_per_root_launch(label, sk)
     solved = result["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
     if result["stalled_rows"] > cfg.max_stalled_frac * solved:
-        raise RuntimeError(f"{result['stalled_rows']} stalled rows of {solved}")
-    if abs(tr - REFERENCE_TRACE) > cfg.trace_tol * REFERENCE_TRACE:
-        raise RuntimeError(f"G301 trace {tr} is not within {cfg.trace_tol:.0%} "
-                           f"of {REFERENCE_TRACE}")
-    return counts
+        raise RuntimeError(f"{label}: {result['stalled_rows']} stalled rows of {solved}")
+    if abs(tr - reference) > cfg.trace_tol * reference:
+        raise RuntimeError(f"{label} trace {tr} is not within {cfg.trace_tol:.0%} "
+                           f"of {reference}")
+    return dict(counts=counts, result=result, wall=wall, peak_gb=peak_gb)
 
 
-def run_flagship(label: str, device):
-    """Phase 4: one 128^2 flagship path through its example entry; returns
-    (result, kernel launches of that run, wall seconds)."""
+def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
+    """A deflated path through its example entry (EXAMPLE_002 with ``mlmc``,
+    else EXAMPLE_001): the 128^2 flagship profile (G102, G202) or the 16^2
+    profile (G101, G201). ``kernels_of_path`` names the kernels the path must
+    launch. Returns (result, kernel launches of that run, wall seconds,
+    standard error)."""
     import math
 
     from deflatedmlmc_schwinger_tpu_torch import examples
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
-    cfg = flagship_cfg()
-    entry = examples.EXAMPLE_001 if label == "G102" else examples.EXAMPLE_002
+    entry = examples.EXAMPLE_002 if mlmc else examples.EXAMPLE_001
     sk.reset_launch_counts()
     t0 = time.perf_counter()
     result = entry(cfg, device=device)
@@ -414,7 +474,7 @@ def run_flagship(label: str, device):
     tr = complex(result["trace"])
     k = int(cfg.nr_deflat_vctrs)
     Br = max(cfg.nr_rough_iters, cfg.probe_batch)
-    if label == "G102":
+    if not mlmc:
         stderr = result["std_dev"] / math.sqrt(result["nr_ests"])
         solved = result["nr_ests"] + Br + k
         print(f"[{label}] nr_ests {result['nr_ests']} function_iters "
@@ -423,7 +483,9 @@ def run_flagship(label: str, device):
     else:
         stderr = result["std_dev"]
         sampled = [r["nr_ests"] for r in result["results"][:-1] if r["ests_dev"] > 0]
-        solved = sum(sampled) + Br + 2 * k
+        # the gamma3 basis' correction solves: once, and once more where the
+        # level-0 difference reuses that basis
+        solved = sum(sampled) + Br + (2 * k if cfg.mlmc_fine_deflation else k)
         for i, r in enumerate(result["results"]):
             print(f"[{label}] level {i}: nr_ests {r['nr_ests']} function_iters "
                   f"{r['function_iters']} trace {complex(r['ests_avg']):.6f} "
@@ -444,13 +506,122 @@ def run_flagship(label: str, device):
         raise RuntimeError(f"{label} produced a non-finite result")
     if len(defl.values) != k or not all(math.isfinite(x) for x in defl.values):
         raise RuntimeError(f"{label}: the deflation basis has no {k} finite eigenvalues")
-    missing = [n for n, c in counts.items() if c <= 0]
+    missing = [n for n in kernels_of_path if counts[n] <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
     _no_per_root_launch(label, sk)
     if stalled > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {stalled} stalled rows of {solved}")
     return result, counts, wall, stderr
+
+
+def check_oracle(label: str, tr: complex, stderr: float, exact: complex) -> None:
+    """An estimate must lie within ORACLE_SIGMAS of its own standard errors
+    of the exact dense value."""
+    err = abs(tr - exact)
+    print(f"[oracle] {label}: |trace - exact| = {err:.6g} = {err / stderr:.3f} stderr, "
+          f"realized relative error {err / abs(exact):.3e}")
+    if err > ORACLE_SIGMAS * stderr:
+        raise RuntimeError(f"{label} trace {tr} is {err / stderr:.2f} stderr from the "
+                           f"exact {exact}")
+
+
+def dense_trace_small(device) -> complex:
+    """The exact tr(D^{-1}) of the 16^2 operator (n = 512): D assembled
+    through the plain stencil and inverted in complex128 on the card."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+
+    cfg = small_cfg()
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims,
+                          dtype=torch.complex128, device=device)
+    eye = torch.eye(op.n, dtype=torch.complex128, device=device)
+    D = sk.stencil_matvec_plain(op.coeffs, eye, op.nx, op.nt).T   # row j of the batch = D e_j
+    return complex(torch.linalg.inv(D).diagonal().sum().item())
+
+
+def check_checkpoint_resume(device) -> None:
+    """Phase 10: a checkpointed Hutchinson run cut by max_nr_ests and
+    resumed equals the uninterrupted one. The stopping rule is put out of
+    reach (trace_tol 1e-9), so every run ends at max_nr_ests, the
+    device-resident loop without a checkpoint included."""
+    from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson
+
+    cfg = set_params("schwinger256").replace(
+        matrix=CHECKPOINT_MATRIX, latt_dims=(64, 64), aggrs=(16, 4), probe_batch=16,
+        max_nr_ests=96, trace_tol=1e-9)
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims, dtype=cfg.dtype,
+                          device=device)
+    with tempfile.TemporaryDirectory() as cut_dir, tempfile.TemporaryDirectory() as whole_dir:
+        first = hutchinson(op, cfg.replace(max_nr_ests=48), verbose=False,
+                           checkpoint_dir=cut_dir)
+        resumed = hutchinson(op, cfg, verbose=False, checkpoint_dir=cut_dir)
+        whole = hutchinson(op, cfg, verbose=False, checkpoint_dir=whole_dir)
+    device_loop = hutchinson(op, cfg, verbose=False)
+    diff = abs(resumed["trace"] - whole["trace"]) / abs(whole["trace"])
+    diff_dev = abs(resumed["trace"] - device_loop["trace"]) / abs(device_loop["trace"])
+    print(f"[checkpoint] cut at {first['nr_ests']} of {cfg.max_nr_ests} probes, resumed: "
+          f"nr_ests {resumed['nr_ests']} function_iters {resumed['function_iters']} trace "
+          f"{complex(resumed['trace'])}; uninterrupted: nr_ests {whole['nr_ests']} "
+          f"function_iters {whole['function_iters']}, relative difference {diff:.3e}; "
+          f"device-resident loop without a checkpoint: relative difference {diff_dev:.3e}")
+    if first["nr_ests"] != 48:
+        raise RuntimeError(f"the cut run took {first['nr_ests']} probes, not 48")
+    for other in (whole, device_loop):
+        if (resumed["nr_ests"], resumed["function_iters"]) != (
+                other["nr_ests"], other["function_iters"]):
+            raise RuntimeError("the resumed run's counts differ from the uninterrupted run's")
+    # the checkpointed loops merge the same batches in float64 on the host;
+    # the device-resident loop keeps complex64 runs' moments in float32
+    if diff > 1e-6 or diff_dev > 1e-5:
+        raise RuntimeError(f"the resumed trace differs by {diff:.3e} from the "
+                           f"uninterrupted run, {diff_dev:.3e} from the device-resident loop")
+
+
+def time_fused_precond_matvec(device) -> None:
+    """Phase 11: one 128-probe batch of the G102 sampling solve, with the
+    precond + matvec pair and with the fused precond_matvec form, in turns
+    (pair, fused, fused, pair) after one warm-up of each."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, setup_hierarchy
+    from deflatedmlmc_schwinger_tpu_torch.solvers import fgmres
+    from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
+
+    cfg = flagship_cfg()
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims, dtype=cfg.dtype,
+                          device=device)
+    solver = MGSolver(setup_hierarchy(op, cfg), cfg.solver)
+    b = make_probe_source("torch", cfg.seed, device)(0, cfg.probe_batch, op.n, cfg.dtype)
+    kw = dict(tol=cfg.solver.effective_tol(cfg.function_tol, cfg.dtype),
+              restart=cfg.solver.restart, max_restarts=cfg.solver.max_restarts)
+    forms = {"pair": dict(precond=solver.precond(0)),
+             "fused": dict(matvec_precond=solver.precond_matvec(0))}
+
+    def run(form):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fgmres(solver.matvec(0), b, **forms[form], **kw)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), res
+
+    ref = {form: run(form)[1] for form in forms}                 # warm-up
+    if not torch.equal(ref["pair"].iters, ref["fused"].iters):
+        raise RuntimeError("the fused precond_matvec form changes the iteration counts")
+    times = {form: [] for form in forms}
+    for form in ("pair", "fused", "fused", "pair", "pair", "fused"):
+        times[form].append(run(form)[0])
+    dx = float((ref["pair"].x - ref["fused"].x).abs().max() / ref["pair"].x.abs().max())
+    print(f"[fused] G102 shapes, one batch of {cfg.probe_batch} probes, "
+          f"{int(ref['pair'].iters.sum())} outer iterations in both forms "
+          f"(max {int(ref['pair'].iters.max())}), x differs by {dx:.3e} relative: "
+          + "; ".join(f"{form} " + ", ".join(f"{t:.2f}" for t in ts) + " ms"
+                      for form, ts in times.items()))
 
 
 def dense_displaced_trace(device):
@@ -509,11 +680,18 @@ def main() -> None:
     print(f"[build] {sk.library_path()} in {time.perf_counter() - t0:.2f} s"
           f"{' (already built)' if cached else ''}")
 
+    from deflatedmlmc_schwinger_tpu_torch import gateway
+
     kernels = check_kernels(device)
-    counts = {"G301": run_g301(device)}
+    all_kernels = tuple(sk.launch_counts())
+    counts = {}
+    g301 = run_generated("G301", gateway.G301, gateway.set_params("schwinger256"),
+                         REFERENCE_TRACE, device)
+    counts["G301"] = g301["counts"]
     flagship = {}
     for label in ("G102", "G202"):
-        result, counts[label], wall, stderr = run_flagship(label, device)
+        result, counts[label], wall, stderr = run_profile(
+            label, flagship_cfg(), label == "G202", device, all_kernels)
         flagship[label] = (complex(result["trace"]), stderr)
         del result
     torch.cuda.empty_cache()
@@ -522,18 +700,54 @@ def main() -> None:
     print(f"[oracle] dense tr(D^-1 Pi^T) = {exact} in {time.perf_counter() - t0:.3f} s "
           f"(complex128 LU on the card)")
     for label, (tr, stderr) in flagship.items():
-        err = abs(tr - exact)
-        print(f"[oracle] {label}: |trace - exact| = {err:.6g} = {err / stderr:.3f} stderr, "
-              f"realized relative error {err / abs(exact):.3e}")
-        if err > ORACLE_SIGMAS * stderr:
-            raise RuntimeError(f"{label} trace {tr} is {err / stderr:.2f} stderr from the "
-                               f"exact {exact}")
+        check_oracle(label, tr, stderr, exact)
+
+    # the 16^2 profile: GMRES smoother, so K1 and K2 are its kernels
+    exact16 = dense_trace_small(device)
+    print(f"[oracle] dense tr(D^-1) of {SMALL_MATRIX} at mass {SMALL_MASS} = {exact16} "
+          f"(complex128 inverse on the card)")
+    for label in ("G101", "G201"):
+        result, counts[label], wall, stderr = run_profile(
+            label, small_cfg(), label == "G201", device,
+            ("stencil_matvec", "stencil_residual"))
+        if counts[label]["stencil_poly_smooth"]:
+            raise RuntimeError(f"{label} launched K3, but its smoother is GMRES")
+        check_oracle(label, complex(result["trace"]), stderr, exact16)
+        del result
+
+    g302 = run_generated("G302", gateway.G302, gateway.set_params("schwinger512"),
+                         REFERENCE_TRACE_G302, device)
+    counts["G302"] = g302["counts"]
+    del g302
+    torch.cuda.empty_cache()
+
+    # the 256^2 profile on the device setup backend, beside G301's host one
+    from deflatedmlmc_schwinger_tpu_torch.examples import EXAMPLE_001
+
+    dev_cfg = gateway.set_params("schwinger256").replace(setup_backend="device")
+    g301_dev = run_generated(
+        "G301 device setup", lambda device: EXAMPLE_001(dev_cfg, device=device), dev_cfg,
+        REFERENCE_TRACE, device)
+    counts["G301 device setup"] = g301_dev["counts"]
+    for name, run in (("host", g301), ("device", g301_dev)):
+        r = run["result"]
+        print(f"[setup backends] {name}: mg_setup {r['timer'].totals['mg_setup']:.4f} s, "
+              f"{r['function_iters'] / r['nr_ests']:.3f} outer iterations per probe, "
+              f"trace {complex(r['trace'])}")
+    del g301, g301_dev
+    torch.cuda.empty_cache()
+
+    check_checkpoint_resume(device)
+    time_fused_precond_matvec(device)
 
     entries = []
     for name, replaces in REPLACES.items():
         key = name if name != "stencil_poly_smooth" else f"{name} depth 16"
-        g301_key = name if name != "stencil_poly_smooth" else f"{name} depth 4"
-        k102, k301 = kernels["G102"][key], kernels["G301"][g301_key]
+        depth4_key = name if name != "stencil_poly_smooth" else f"{name} depth 4"
+        k102 = kernels["G102"][key]
+        # the other shapes a path gives this kernel (K3 is on no 16^2 path)
+        others = {lbl: kernels[lbl][depth4_key] for lbl in ("G301", "G302", "G101")
+                  if depth4_key in kernels[lbl]}
         per_path = {p: c[name] for p, c in counts.items()}
         entry = dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=replaces,
@@ -541,12 +755,14 @@ def main() -> None:
             max_abs_err=k102["max_abs_err"], ms=k102["ms"], plain_ms=k102["plain_ms"],
             bound_ms=k102["bound_ms"], bound_by=k102["bound_by"],
             library_ms=k102.get("library_ms"), shapes="G102",
-            g301_shapes={k: k301.get(k) for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            other_shapes={lbl: {k: res.get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for lbl, res in others.items()})
         if name == "stencil_poly_smooth":
             # launches count the tiled kernel's launches, several roots each
             entry["per_root_kernel_ms"] = k102["other_ms"]
-            entry["g301_shapes"]["per_root_kernel_ms"] = k301["other_ms"]
+            for lbl, res in others.items():
+                entry["other_shapes"][lbl]["per_root_kernel_ms"] = res["other_ms"]
             entry["variants"] = {
                 f"{lbl} {k[len(name) + 1:]}": {f: v[f] for f in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}

@@ -1,5 +1,5 @@
 """Command line: ``python -m deflatedmlmc_schwinger_tpu_torch G301
-[--device cuda:0]``."""
+[--device cuda:0]``; the entries are G101, G102, G201, G202, G301, G302."""
 
 from __future__ import annotations
 
@@ -13,8 +13,15 @@ def main(argv=None) -> None:
     ap.add_argument("entry", choices=sorted(ENTRIES))
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="number of devices (G302 only; more than 1 is not ported)")
     args = ap.parse_args(argv)
-    ENTRIES[args.entry](device=args.device)
+    if args.devices != 1:
+        if args.entry != "G302":
+            ap.error("--devices applies to G302 only")
+        ENTRIES[args.entry](device=args.device, devices=args.devices)
+    else:
+        ENTRIES[args.entry](device=args.device)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ class SolverConfig:
     restart: int = 20
     max_restarts: int = 10
     smooth_iters: int = 4
-    smoother: str = "gmres"         # 'gmres' | 'poly' (only 'poly' is ported)
+    smoother: str = "gmres"         # 'gmres' | 'poly'
     stall_ratio: Optional[float] = 0.9
     stall_cycles: int = 2
     tol_floor_c64: float = 3.0e-7

@@ -3,13 +3,17 @@
 
 ``set_params`` holds all five configurations as data, field for field the
 JAX package's (the reasons behind each tuned knob are documented there).
-G102, G202 and G301 run in this package. G101/G201 (the 16^2 profile's
-GMRES smoother) and G302 (the device setup backend and the mesh) wait for
-their slices (ROADMAP.md queue).
+All six entries run here on one device: G101/G201 (the 16^2 profile, GMRES
+smoother, complex128), G102/G202 (the tuned 128^2 profile), G301 (generated
+256^2) and G302 (generated 512^2; the profile keeps the host setup backend,
+with the fine-level test vectors from the device CheFSI). G302 over several
+devices, with probe batches or the lattice sharded, waits for the parallel
+slice (ROADMAP.md queue).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import torch
@@ -154,6 +158,18 @@ def set_params(example_name: str) -> TraceConfig:
     return TraceConfig(**_CONFIGS[example_name])
 
 
+def G101(*, device="cuda"):
+    """Deflated Hutchinson, Schwinger 16^2 (needs schwinger16.mat)."""
+    return EXAMPLE_001(set_params("schwinger16").replace(function_tol=1e-12),
+                       device=device)
+
+
+def G201(*, device="cuda"):
+    """Deflated MG-MLMC, Schwinger 16^2 (needs schwinger16.mat)."""
+    return EXAMPLE_002(set_params("schwinger16").replace(function_tol=1e-12),
+                       device=device)
+
+
 def G102(*, device="cuda"):
     """Deflated Hutchinson, Schwinger 128^2, the tuned profile (needs
     schwinger128.mat)."""
@@ -171,4 +187,17 @@ def G301(*, device="cuda"):
     return EXAMPLE_001(set_params("schwinger256"), device=device)
 
 
-ENTRIES = {"G102": G102, "G202": G202, "G301": G301}
+def G302(*, device="cuda", devices: int = 1):
+    """Deflated Hutchinson on a generated 512^2 quenched configuration, on
+    one device. ``devices`` > 1 (probe batches sharded over several devices)
+    and DMLMC_X_SHARDS > 1 (the lattice decomposed over devices) are the
+    JAX package's multi-chip forms of this entry and are not ported yet."""
+    if int(devices) != 1 or int(os.environ.get("DMLMC_X_SHARDS", "1")) > 1:
+        raise NotImplementedError(
+            "G302 over more than one device waits for the parallel slice "
+            "(ROADMAP.md queue: parallel); run it with devices=1")
+    return EXAMPLE_001(set_params("schwinger512"), device=device)
+
+
+ENTRIES = {"G101": G101, "G102": G102, "G201": G201, "G202": G202,
+           "G301": G301, "G302": G302}

@@ -1,8 +1,9 @@
 """Matrix ingestion: a .mat file or a 'generated:' spec -> StencilOperator
 (counterpart of deflatedmlmc_schwinger_tpu/io/matio.py).
 
-A .mat file is read with scipy only: key 'S', for schwinger16.mat first
-multiplied by gamma_3 (lower half of the rows negated), then D = S + m I.
+A .mat file gives key 'S', for schwinger16.mat first multiplied by gamma_3
+(lower half of the rows negated), then D = S + m I. It is read by the native
+C++ MAT5 reader (io/native.py) when that library is built, else by scipy.
 """
 
 from __future__ import annotations
@@ -20,14 +21,26 @@ from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator
 
 
 def load_matrix(path: str, mass: float) -> sp.csr_matrix:
-    """Load D = (gamma3-fixed) S + m*I as a host CSR matrix."""
-    import scipy.io as sio
-
+    """Load D = (gamma3-fixed) S + m*I as a host CSR matrix. The native
+    reader is preferred (bit-exact against scipy.io); DMLMC_NATIVE_IO=0, an
+    unbuilt library or a file it cannot read leave the reading to scipy."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        A = sp.csr_matrix(sio.loadmat(path)["S"])
+    A = None
+    if os.environ.get("DMLMC_NATIVE_IO", "1") != "0":
+        from deflatedmlmc_schwinger_tpu_torch.io import native
+
+        if native.available():
+            try:
+                A = sp.csr_matrix(native.load_mat_sparse(path, "S"))
+            except RuntimeError:
+                A = None
+    if A is None:
+        import scipy.io as sio
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            A = sp.csr_matrix(sio.loadmat(path)["S"])
     if os.path.basename(path) == "schwinger16.mat":
         half = A.shape[0] // 2
         A = sp.vstack([A[:half, :], -A[half:, :]]).tocsr()

@@ -20,6 +20,7 @@ import torch
 
 from deflatedmlmc_schwinger_tpu_torch.config import TraceConfig
 from deflatedmlmc_schwinger_tpu_torch.io.stencil import csr_from_stencil
+from deflatedmlmc_schwinger_tpu_torch.mg.cycle import arnoldi_leja_roots
 from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import (
     BlockProlongator,
     BlockStencilOperator,
@@ -28,13 +29,9 @@ from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import (
     MGLevel,
     pack_grouped,
 )
-from deflatedmlmc_schwinger_tpu_torch.mg.setup import p_blocks_host
-from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator, gamma3
-from deflatedmlmc_schwinger_tpu_torch.solvers.eigs import (
-    _harmonic_small_solve,
-    _orth,
-    chebyshev_filtered_smallest,
-)
+from deflatedmlmc_schwinger_tpu_torch.mg.setup import _test_vectors, p_blocks_host
+from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator
+from deflatedmlmc_schwinger_tpu_torch.solvers.eigs import _harmonic_small_solve, _orth
 
 
 def _gamma3_rows(W: np.ndarray) -> np.ndarray:
@@ -141,23 +138,6 @@ def _test_vectors_host(A: sp.csr_matrix, k: int, cfg: TraceConfig, seed: int,
     raise ValueError(f"unknown test_vectors_type {mode!r}")
 
 
-def _test_vectors_device(op0: StencilOperator, k: int, cfg: TraceConfig,
-                         seed: int, tol: float, rounds: int) -> np.ndarray:
-    """Fine-level test vectors from the device-resident CheFSI: the (m, n)
-    subspace and the Chebyshev recurrence stay on op0's device (kernel K1),
-    only m x m projections and the final (n, k) block come back."""
-    mode = cfg.test_vectors_type
-    if mode not in ("RSVs", "LSVs"):
-        raise ValueError(f"device fine eigensolve supports RSVs/LSVs, got {mode!r}")
-    eig = chebyshev_filtered_smallest(
-        lambda v: gamma3(op0.matvec(v)), op0.n, k, dtype=op0.dtype,
-        device=op0.device, seed=seed, degree=cfg.chebyshev_degree,
-        rounds=rounds, tol=tol,
-    )
-    V = np.asarray(eig.vectors, dtype=np.complex128)
-    return _gamma3_rows(V) if mode == "LSVs" else V
-
-
 def _bsr_from_blocks(blocks: np.ndarray) -> sp.csr_matrix:
     """Block-diagonal prolongator CSR from (na, L, dc) aggregate blocks."""
     na, L, dc = blocks.shape
@@ -195,30 +175,10 @@ def _block_stencil_host(C: sp.csr_matrix, dc: int, up: Callable,
 
 
 def _poly_roots_host(A: sp.csr_matrix, m: int, seed: int = 29) -> Tuple[complex, ...]:
-    """Leja-ordered roots of the m-step GMRES residual polynomial (harmonic
-    Ritz values of a short Arnoldi run on the host operator)."""
-    n = A.shape[0]
-    rng = np.random.default_rng(seed)
-    v = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    V = np.zeros((n, m + 1), dtype=complex)
-    H = np.zeros((m + 1, m), dtype=complex)
-    V[:, 0] = v / np.linalg.norm(v)
-    for j in range(m):
-        w = A @ V[:, j]
-        for i in range(j + 1):
-            H[i, j] = np.vdot(V[:, i], w)
-            w = w - H[i, j] * V[:, i]
-        H[j + 1, j] = np.linalg.norm(w)
-        V[:, j + 1] = w / max(H[j + 1, j].real, 1e-300)
-    Hm = H[:m, :m]
-    f = np.linalg.solve(Hm.conj().T, np.eye(m)[:, -1])
-    theta = np.linalg.eigvals(Hm + (abs(H[m, m - 1]) ** 2) * np.outer(f, np.eye(m)[-1]))
-    order = [int(np.argmax(np.abs(theta)))]
-    for _ in range(m - 1):
-        rest = [i for i in range(m) if i not in order]
-        prod = [np.prod([abs(theta[i] - theta[o]) for o in order]) for i in rest]
-        order.append(rest[int(np.argmax(prod))])
-    return tuple(complex(t) for t in theta[order])
+    """Leja-ordered roots of the m-step GMRES residual polynomial of the
+    host level operator (mg/cycle.py arnoldi_leja_roots)."""
+    return tuple(complex(t) for t in
+                 arnoldi_leja_roots(lambda v: A @ v, A.shape[0], m, seed))
 
 
 def setup_hierarchy_host(op0: StencilOperator, cfg: TraceConfig) -> Hierarchy:
@@ -272,8 +232,14 @@ def setup_hierarchy_host(op0: StencilOperator, cfg: TraceConfig) -> Hierarchy:
         phase_period = dof[i] if i == 0 else dof[i] // 2
         k = dof[i + 1] // 2
         if i == 0 and fine_dev:
-            tv = _test_vectors_device(op0, k, cfg, cfg.seed + 977 * i, eig_tol,
-                                      rounds=cfg.subspace_iters)
+            # the device backend's eigensolve (mg/setup.py): the (m, n)
+            # subspace and the Chebyshev recurrence stay on op0's device
+            # (kernel K1); only m x m projections and the final (n, k) block
+            # come back
+            if cfg.test_vectors_type not in ("RSVs", "LSVs"):
+                raise ValueError("device fine eigensolve supports RSVs/LSVs, got "
+                                 f"{cfg.test_vectors_type!r}")
+            tv = _test_vectors(op0, k, cfg, cfg.seed + 977 * i, eig_tol, op0.device)
         else:
             tv = _test_vectors_host(
                 A, k, cfg, cfg.seed + 977 * i, eig_tol,

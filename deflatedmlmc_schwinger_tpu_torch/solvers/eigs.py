@@ -19,11 +19,17 @@ deflatedmlmc_schwinger_tpu/solvers/eigs.py).
     plain Rayleigh--Ritz (``subspace_iteration_largest``), on the host in
     numpy with the operator applied to column blocks on the device, as in
     the JAX package.
+  * ``smallest_eigpairs_nonhermitian``: approximate smallest eigenpairs of
+    the non-Hermitian D itself (the 'EVs' test vectors of the device setup
+    backend): a CheFSI subspace of Q^2 = D^H D, then an oblique Ritz step.
+  * ``harmonic_ritz_smallest`` and ``inverse_iteration_smallest``: the host
+    forms of the harmonic-Ritz extraction and of inverse subspace iteration
+    (the (n, m) basis crosses to the host every round).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.linalg as sla
@@ -74,6 +80,51 @@ def _apply_cols(matvec: Callable, W: np.ndarray, dtype: torch.dtype,
     complex (n, m) matrix."""
     rows = torch.from_numpy(np.ascontiguousarray(W.T)).to(device=device, dtype=dtype)
     return matvec(rows).cpu().numpy().T
+
+
+def harmonic_ritz_smallest(matvec: Callable, V: np.ndarray, k: int,
+                           dtype: torch.dtype, device) -> EigResult:
+    """Harmonic Rayleigh--Ritz on the host for the eigenvalues nearest 0 of
+    a Hermitian operator, from the span of the columns of V (n, m)."""
+    W = _orth(V)
+    U = _apply_cols(matvec, W, dtype, device)
+    eps = 1e3 * float(torch.finfo(real_dtype(dtype)).eps)
+    # _harmonic_small_solve orders by |mu| ascending, i.e. theta ~ 1/mu
+    # nearest 0 first
+    X = W @ _harmonic_small_solve(U.conj().T @ W, U.conj().T @ U, eps)
+    X = X / np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-300)
+    HX = _apply_cols(matvec, X, dtype, device)
+    theta = np.real(np.sum(np.conj(X) * HX, axis=0))[:k]
+    X = X[:, :k]
+    R = HX[:, :k] - X * theta[None, :]
+    return EigResult(values=theta, vectors=X, resnorms=np.linalg.norm(R, axis=0))
+
+
+def inverse_iteration_smallest(matvec: Callable, apply_inv: Callable, n: int,
+                               k: int, *, dtype: torch.dtype, device,
+                               seed: int = 5, rounds: int = 6,
+                               buffer: Optional[int] = None, tol: float = 0.0,
+                               V0: Optional[np.ndarray] = None) -> EigResult:
+    """Smallest-|lambda| eigenpairs of a Hermitian H by inverse subspace
+    iteration V <- H^{-1} V with the basis on the host (``apply_inv`` and
+    ``matvec`` act on (m, n) rows on ``device``); harmonic Ritz after every
+    round."""
+    m = buffer if buffer is not None else max(k + 2, int(round(1.25 * k)))
+    m = min(m, n)
+    if V0 is not None:
+        V = V0
+        m = V.shape[1]
+    else:
+        rng = np.random.default_rng(seed)
+        V = rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m))
+    result = None
+    for _ in range(rounds):
+        V = _apply_cols(apply_inv, _orth(V), dtype, device)
+        result = harmonic_ritz_smallest(matvec, V, m, dtype, device)
+        V = result.vectors
+        if tol > 0 and float(np.max(result.resnorms[:k])) < tol:
+            break
+    return EigResult(result.values[:k], result.vectors[:, :k], result.resnorms[:k])
 
 
 def rayleigh_ritz_hermitian(matvec: Callable, V: np.ndarray, k: int,
@@ -295,16 +346,26 @@ def chebyshev_filtered_smallest(
     seed: int = 3,
     degree: int = 100,
     rounds: int = 8,
+    buffer: Optional[int] = None,
     tol: float = 0.0,
+    V0: Optional[np.ndarray] = None,
 ) -> EigResult:
     """Smallest-|lambda| eigenpairs of a Hermitian operator (``matvec`` on
-    (m, n) row batches) via CheFSI on H^2 + harmonic Ritz, the subspace
-    resident on ``device``; stops early once the k residuals are below
-    ``tol`` (0: run every round)."""
-    m = min(max(k + 2, int(round(1.5 * k))), n)
+    (m, n) row batches) via CheFSI on H^2 + harmonic Ritz, the subspace of
+    ``buffer`` (default 1.5 k) vectors resident on ``device``; stops early
+    once the k residuals are below ``tol`` (0: run every round). ``V0``
+    (host (n, m0) complex) replaces the first columns of the random start
+    block: MG setup seeds a coarse level with the restricted test vectors of
+    the finer one."""
+    m = buffer if buffer is not None else max(k + 2, int(round(1.5 * k)))
+    m = min(m, n)
     lam_max = power_bound(matvec, n, dtype, device, seed=seed + 17)
     rng = np.random.default_rng(seed)
-    V = _orth(rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m)))
+    V = rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m))
+    if V0 is not None:
+        m0 = min(V0.shape[1], m)
+        V[:, :m0] = V0[:, :m0]
+    V = _orth(V)
 
     def up(M: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(M)).to(device=device, dtype=dtype)
@@ -348,6 +409,35 @@ def chebyshev_filtered_smallest(
             break
     X = down(Vd).T
     return EigResult(theta[:k], X[:, :k], res[:k])
+
+
+def smallest_eigpairs_nonhermitian(
+    matvec_A: Callable,
+    matvec_Q: Callable,
+    n: int,
+    k: int,
+    *,
+    dtype: torch.dtype,
+    device,
+    seed: int = 23,
+    degree: int = 100,
+    rounds: int = 8,
+    buffer: Optional[int] = None,
+    V0: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Approximate smallest-|lambda| eigenpairs (values (k,), vectors
+    (n, k), host) of the non-Hermitian A: a CheFSI subspace of
+    Q^2 = A^H A (Q = gamma3 A Hermitian), then the oblique Ritz problem
+    G = W^H A W on the host. The hierarchy's quality depends on these
+    vectors, an estimator's bias never does."""
+    m = buffer if buffer is not None else max(k + 2, 2 * k)
+    sub = chebyshev_filtered_smallest(
+        matvec_Q, n, m, dtype=dtype, device=device, seed=seed, degree=degree,
+        rounds=rounds, buffer=max(m + 2, int(round(1.25 * m))), V0=V0)
+    W = _orth(sub.vectors)
+    theta, Y = np.linalg.eig(W.conj().T @ _apply_cols(matvec_A, W, dtype, device))
+    order = np.argsort(np.abs(theta))[:k]
+    return theta[order], W @ Y[:, order]
 
 
 def _chebyshev_filter(matvec: Callable, V: torch.Tensor, a: float, b: float,

@@ -57,7 +57,7 @@ def _givens(a: torch.Tensor, b: torch.Tensor, tiny: float):
 def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  x0: torch.Tensor, tol_abs: torch.Tensor, restart: int,
                  max_restarts: int, stall_ratio: Optional[float],
-                 stall_cycles: int):
+                 stall_cycles: int, matvec_precond: Optional[Callable] = None):
     B, n = b.shape
     m = restart
     cdtype = b.dtype
@@ -87,8 +87,13 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
         while j < m and bool((res > tol_abs).any()):
             active = res > tol_abs
             iters += active.to(torch.int32)
-            z = precond(V[j])
-            w = matvec(z)
+            if matvec_precond is not None:
+                # the V-cycle's own final residual gives A z = v - r, which
+                # saves this step's operator application
+                z, w = matvec_precond(V[j])
+            else:
+                z = precond(V[j])
+                w = matvec(z)
             Z[j] = z
             hcol = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
             for i in range(j + 1):           # modified Gram-Schmidt
@@ -150,12 +155,16 @@ def fgmres(
     restart: int = 20,
     max_restarts: int = 10,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    matvec_precond: Optional[Callable] = None,
     x0: Optional[torch.Tensor] = None,
     stall_ratio: Optional[float] = 0.9,
     stall_cycles: int = 2,
 ) -> FGMRESResult:
     """Solve A x = b for a batch of complex right-hand sides b (B, n).
-    ``stall_ratio=None`` disables the stall cutoff."""
+    ``stall_ratio=None`` disables the stall cutoff. ``matvec_precond``: an
+    optional fused v -> (z, A z) with z = M v; when given it replaces the
+    precond + matvec pair of every Arnoldi step (the true residuals at the
+    restart boundaries still use ``matvec``)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if precond is None:
@@ -165,6 +174,7 @@ def fgmres(
     x, res, iters, cycles = _fgmres_impl(
         matvec, precond, b, x0, tol_abs, int(restart), int(max_restarts),
         None if stall_ratio is None else float(stall_ratio), int(stall_cycles),
+        matvec_precond,
     )
     return FGMRESResult(x=x, resnorm=res, bnorm=bnorm, iters=iters,
                         cycles=cycles, stalled=res > tol_abs)

@@ -4,14 +4,17 @@ deflatedmlmc_schwinger_tpu/trace/hutchinson.py).
 MG setup -> deflation precompute -> rough trace -> batched probe sampling
 with the stderr stopping rule (trace/stats.py sample_to_stop) -> result
 dict with the analytic complexity model. Probes are solved a batch at a
-time by one MG-preconditioned FGMRES call.
+time by one MG-preconditioned FGMRES call. With ``checkpoint_dir`` the
+hierarchy is cached and the sampling state saved after every batch, and the
+moments are then kept on the host (trace/stats.py sample_to_stop_host).
 
-Not ported yet: the mesh and lattice-sharded branches, and checkpoint
-resume (ROADMAP.md queue: checkpoints; parallel).
+Not ported yet: the mesh and lattice-sharded branches (ROADMAP.md queue:
+parallel).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,7 +26,6 @@ from deflatedmlmc_schwinger_tpu_torch.config import (
     real_dtype,
 )
 from deflatedmlmc_schwinger_tpu_torch.mg.cycle import MGSolver
-from deflatedmlmc_schwinger_tpu_torch.mg.setup import setup_hierarchy
 from deflatedmlmc_schwinger_tpu_torch.ops.dirac import shift_rows_down
 from deflatedmlmc_schwinger_tpu_torch.trace.deflation import (
     Deflation,
@@ -31,7 +33,12 @@ from deflatedmlmc_schwinger_tpu_torch.trace.deflation import (
     hutchinson_deflation,
 )
 from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
-from deflatedmlmc_schwinger_tpu_torch.trace.stats import check_stalled, sample_to_stop
+from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
+    RunningMoments,
+    check_stalled,
+    sample_to_stop,
+    sample_to_stop_host,
+)
 from deflatedmlmc_schwinger_tpu_torch.utils.flops import flops_vcycle, level_nnz
 from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
 
@@ -63,18 +70,35 @@ def hutchinson(
     probe_source: str = "torch",
     timer: Optional[PhaseTimer] = None,
     verbose: bool = True,
+    checkpoint_dir: Optional[str] = None,
 ) -> Dict:
     """Compute tr(A^{-1}) (or tr(A^{-1} Pi)) by deflated Hutchinson on the
-    device that holds ``op``."""
+    device that holds ``op``.
+
+    ``checkpoint_dir``: if set, the hierarchy is cached there
+    (hierarchy.npz) and the sampling state (moments, next sample index,
+    iterations) is saved after every batch (hutchinson_state.json); an
+    interrupted run resumes on the same counter-keyed probe stream."""
+    # utils.checkpoint imports trace.stats, so it is imported here and not
+    # at the top of this module
+    from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import (
+        EstimatorState,
+        setup_or_load_hierarchy,
+    )
+
     pin_full_precision_matmuls()
     device = op.device
     timer = timer or PhaseTimer(device)
     log = print if verbose else (lambda *a, **k: None)
+    state_ckpt = None
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        state_ckpt = os.path.join(checkpoint_dir, "hutchinson_state.json")
 
     if solver is None:
         with timer.phase("mg_setup"):
             if hier is None:
-                hier = setup_hierarchy(op, cfg)
+                hier = setup_or_load_hierarchy(op, cfg, checkpoint_dir, log)
             solver = MGSolver(hier, cfg.solver)
     else:
         hier = solver.hier
@@ -107,14 +131,36 @@ def hutchinson(
     solver.coarsest_lev_iters[0] = 0
     B = int(cfg.probe_batch)
 
-    def step(start: int):
+    def step(start: int, gather: bool = False):
         return hutchinson_step_batch(op, solver, cfg, defl, probes(start, B, n, dtype),
-                                     gather=False)
+                                     gather=gather)
 
     with timer.phase("sampling"):
-        moments, function_iters, nstall = sample_to_stop(
-            step, cfg, rough_trace_tol, "hutchinson sampling", real_dtype(dtype), device)
-    stalled_rows += nstall
+        if state_ckpt is None:
+            moments, function_iters, nstall = sample_to_stop(
+                step, cfg, rough_trace_tol, "hutchinson sampling", real_dtype(dtype),
+                device)
+            stalled_rows += nstall
+        else:
+            state = EstimatorState.load_or_empty(state_ckpt)
+            moments = state.moments.get("hutchinson", RunningMoments())
+            resume_at = state.next_index.get("hutchinson", 0)
+            if resume_at:
+                log(f"resuming sampling at sample {resume_at} (n={moments.count})")
+            function_iters = int(state.iters.get("hutchinson", 0))
+
+            def after_batch(batch, next_start: int) -> None:
+                nonlocal function_iters, stalled_rows
+                function_iters += int(np.sum(batch[1]))
+                stalled_rows += int(np.sum(batch[2]))
+                check_stalled(stalled_rows, next_start - resume_at + Br,
+                              cfg.max_stalled_frac, "hutchinson sampling")
+                EstimatorState(moments={"hutchinson": moments},
+                               next_index={"hutchinson": next_start},
+                               iters={"hutchinson": function_iters}).save(state_ckpt)
+
+            sample_to_stop_host(lambda start: step(start, gather=True), cfg,
+                                rough_trace_tol, moments, resume_at, after_batch)
 
     nnz = level_nnz(hier)
     result = dict(

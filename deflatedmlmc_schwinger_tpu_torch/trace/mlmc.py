@@ -18,7 +18,8 @@ operator, and the coarsest term becomes tr(Pi_c^T A_c^{-1} B_c).
 Sampling runs on the operator's device. The sequential schedule samples
 each level with the device-resident loop of trace/stats.py sample_to_stop;
 the adaptive schedule gathers each batch on the host, because its greedy
-allocation needs the moments there.
+allocation needs the moments there, and so does every run with
+``checkpoint_dir``, which saves the per-level state after each batch.
 
 One deliberate deviation from the JAX package: the complexity model charges
 each dense inverse once. The JAX package charges every dense-exact level
@@ -29,12 +30,12 @@ level. So ``results[l]["level_complexity"]`` of a dense-exact level l, and
 by 512^3 on level 2); every trace, deviation and count is the same.
 
 Not ported yet (raise NotImplementedError): the mesh and lattice-sharded
-branches (ROADMAP.md queue: parallel) and checkpoint resume (ROADMAP.md
-queue: checkpoints).
+branches (ROADMAP.md queue: parallel).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from math import sqrt
 from typing import Dict, List, Optional
@@ -51,7 +52,6 @@ from deflatedmlmc_schwinger_tpu_torch.config import (
 from deflatedmlmc_schwinger_tpu_torch.mg.cycle import MGSolver
 from deflatedmlmc_schwinger_tpu_torch.mg.diff_op import level_structure
 from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import Hierarchy
-from deflatedmlmc_schwinger_tpu_torch.mg.setup import setup_hierarchy
 from deflatedmlmc_schwinger_tpu_torch.ops.dirac import (
     shift_rows_down,
     shift_rows_up,
@@ -71,6 +71,7 @@ from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
     RunningMoments,
     check_stalled,
     sample_to_stop,
+    sample_to_stop_host,
 )
 from deflatedmlmc_schwinger_tpu_torch.utils.flops import flops_vcycle, level_nnz
 from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
@@ -201,11 +202,13 @@ def mlmc_step_batch(solver: MGSolver, cfg: TraceConfig, level: int,
 
 def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
                        results, probe_source: str, skip_level: bool, log,
-                       exact_set, dense_invs) -> None:
+                       exact_set, dense_invs, state, save_level) -> None:
     """Optimal-allocation MLMC sampling: batches go one at a time to the
     level with the largest drop of the aggregate variance sqrt(sum V_l/n_l)
     per second of batch time, until the aggregate standard error meets the
-    whole budget |trace_tol * rough_trace| (times stop_safety)."""
+    whole budget |trace_tol * rough_trace| (times stop_safety). ``state``
+    carries the levels' moments and next sample indices of a resumed run;
+    ``save_level(i, moments, next_start)`` persists them after a batch."""
     hier = solver.hier
     B = int(cfg.probe_batch)
     device = hier.coarsest_inv.device
@@ -214,8 +217,8 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
     active = [i for i in range(hier.nr_levels - 1)
               if not (skip_level and i == 1) and i not in exact_set]
     probes = {i: make_probe_source(probe_source, cfg.seed + i, device) for i in active}
-    moments = {i: RunningMoments() for i in active}
-    starts = {i: 0 for i in active}
+    moments = {i: state.moments.get(f"level{i}", RunningMoments()) for i in active}
+    starts = {i: state.next_index.get(f"level{i}", 0) for i in active}
     costs: Dict[int, list] = {i: [] for i in active}
 
     def run_batch(i: int) -> None:
@@ -237,6 +240,7 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
         if len(c) == 1:
             c[0] = dt     # drop the first, warm-up-skewed measurement
         c.append(dt)
+        save_level(i, moments[i], starts[i])
 
     def agg_var() -> float:
         return sum(moments[i].std_dev ** 2 / moments[i].count
@@ -250,7 +254,8 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
         return gain / max(cost, 1e-9)
 
     for i in active:          # warm-up: one batch per level gives (V_l, C_l)
-        run_batch(i)
+        if moments[i].count == 0:
+            run_batch(i)
     stopper = ConfirmedStop(cfg.stop_confirm)
     while any(starts[i] < cfg.max_nr_ests for i in active):
         done = all(moments[i].count >= cfg.min_nr_ests for i in active)
@@ -268,14 +273,42 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
 
 def _sequential_level(solver: MGSolver, cfg: TraceConfig, i: int, defl: Deflation,
                       level_trace_tol: float, results, probe_source: str,
-                      skip_level: bool, coarse_dense_inv) -> RunningMoments:
-    """Sample difference level i to its own stopping rule (trace/stats.py
-    sample_to_stop); the coarse solves' iterations go to the coarse level."""
+                      skip_level: bool, coarse_dense_inv, log, state=None,
+                      save_level=None) -> RunningMoments:
+    """Sample difference level i to its own stopping rule; the coarse
+    solves' iterations go to the coarse level. Without ``state`` the moments
+    stay on the device (trace/stats.py sample_to_stop); with the
+    EstimatorState of a checkpointed run the level continues from its saved
+    moments and sample index on the host loop, and ``save_level`` persists
+    them after every batch."""
     lev = solver.hier.levels[i]
     device = solver.hier.coarsest_inv.device
     rdt = real_dtype(lev.op.dtype)
     B = int(cfg.probe_batch)
     probes = make_probe_source(probe_source, cfg.seed + i, device)
+    if state is not None:
+        moments = state.moments.get(f"level{i}", RunningMoments())
+        start = state.next_index.get(f"level{i}", 0)
+        if start:
+            log(f"level {i}: resuming at sample {start} (n={moments.count})")
+
+        def host_step(s: int):
+            return mlmc_step_batch(
+                solver, cfg, i, defl, probes(s, B, lev.n, lev.op.dtype), skip_level,
+                coarse_dense_inv=coarse_dense_inv)
+
+        def after_batch(batch, next_start: int) -> None:
+            _, it1, it2, coarse, stall = batch
+            results[i]["function_iters"] += int(np.sum(it1))
+            results[coarse]["function_iters"] += int(np.sum(it2))
+            results[i]["stalled_rows"] += int(np.sum(stall))
+            check_stalled(results[i]["stalled_rows"], moments.count,
+                          cfg.max_stalled_frac, f"mlmc level {i}")
+            save_level(i, moments, next_start)
+
+        sample_to_stop_host(host_step, cfg, level_trace_tol, moments, start,
+                            after_batch, check_before_batch=True)
+        return moments
     coarse_iters = [torch.zeros((), dtype=rdt, device=device)]
 
     def step(start: int):
@@ -328,16 +361,30 @@ def mlmc(
     checkpoint_dir: Optional[str] = None,
 ) -> Dict:
     """Compute tr(A^{-1}) (or tr(A^{-1} Pi)) by deflated MG-MLMC on the
-    device that holds ``op``."""
+    device that holds ``op``.
+
+    ``checkpoint_dir``: if set, the hierarchy is cached there
+    (hierarchy.npz) and the sampling state of every difference level
+    (moments, next sample index, iterations) is saved after each batch
+    (mlmc_state.json); an interrupted run resumes each level on the same
+    counter-keyed probe stream."""
+    # utils.checkpoint imports trace.stats, so it is imported here and not
+    # at the top of this module
+    from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import (
+        EstimatorState,
+        setup_or_load_hierarchy,
+    )
+
     if mesh is not None:
         raise NotImplementedError("mlmc over a device mesh waits for its slice "
                                   "(ROADMAP.md queue: parallel)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("mlmc checkpoints wait for their slice "
-                                  "(ROADMAP.md queue: checkpoints)")
     pin_full_precision_matmuls()
     timer = timer or PhaseTimer(op.device)
     log = print if verbose else (lambda *a, **k: None)
+    state_ckpt = None
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        state_ckpt = os.path.join(checkpoint_dir, "mlmc_state.json")
 
     skips = list(cfg.mlmc_levels_to_skip)
     if len(skips) > 1:
@@ -353,7 +400,7 @@ def mlmc(
     if solver is None:
         with timer.phase("mg_setup"):
             if hier is None:
-                hier = setup_hierarchy(op, cfg)
+                hier = setup_or_load_hierarchy(op, cfg, checkpoint_dir, log)
             solver = MGSolver(hier, cfg.solver)
     else:
         hier = solver.hier
@@ -441,10 +488,24 @@ def mlmc(
                 log(f"level {l}: exact dense difference trace {t_l:.6f}")
 
     # ---- difference-level sampling ----
+    state = EstimatorState.load_or_empty(state_ckpt)
+    for j in range(nr_levels):
+        results[j]["function_iters"] = int(state.iters.get(f"level{j}", 0))
+
+    def save_level(i: int, moments: RunningMoments, next_start: int) -> None:
+        if state_ckpt is None:
+            return
+        state.moments[f"level{i}"] = moments
+        state.next_index[f"level{i}"] = next_start
+        state.iters = {f"level{j}": results[j]["function_iters"]
+                       for j in range(nr_levels)}
+        state.save(state_ckpt)
+
     if cfg.mlmc_schedule == "adaptive":
         with timer.phase("sampling"):
             _adaptive_sampling(solver, cfg, defls, rough_trace, results,
-                               probe_source, skip_level, log, exact_set, dense_invs)
+                               probe_source, skip_level, log, exact_set, dense_invs,
+                               state, save_level)
     elif cfg.mlmc_schedule != "sequential":
         raise ValueError(f"unknown mlmc_schedule {cfg.mlmc_schedule!r}")
     else:
@@ -458,7 +519,8 @@ def mlmc(
                                                         * tol_fctr)
                 moments = _sequential_level(
                     solver, cfg, i, defls[i], level_trace_tol, results, probe_source,
-                    skip_level, dense_invs.get(_coarse_level(i, skip_level)))
+                    skip_level, dense_invs.get(_coarse_level(i, skip_level)), log,
+                    state if state_ckpt else None, save_level)
                 results[i]["nr_ests"] += moments.count
                 results[i]["ests_avg"] = moments.mean + defls[i].tr1
                 results[i]["ests_dev"] = moments.std_dev

@@ -4,7 +4,10 @@ of deflatedmlmc_schwinger_tpu/trace/stats.py).
 Population deviation dev = sqrt(mean |e - mean|^2); stop when n >= 6 and
 dev/sqrt(n) < target. Batches merge with the Chan/Welford update, on the
 host (RunningMoments) or as device scalars (DeviceMoments) so that the
-sampling loop reads only one small flag tensor per batch.
+sampling loop reads only one small flag tensor per batch. The two sampling
+loops live here: ``sample_to_stop`` keeps the moments on the device, and
+``sample_to_stop_host`` gathers every batch, which a checkpointed run needs
+(its state is saved after each batch).
 """
 
 from __future__ import annotations
@@ -220,3 +223,34 @@ def sample_to_stop(step: Callable[[int], tuple], cfg, tol_target: float, where: 
     nstall = int(stall_acc.item())
     check_stalled(nstall, start, cfg.max_stalled_frac, where)
     return device_moments_to_host(dm), int(dm.iters.item()), nstall
+
+
+def sample_to_stop_host(step: Callable[[int], tuple], cfg, tol_target: float,
+                        moments: RunningMoments, start: int,
+                        after_batch: Callable[[tuple, int], None],
+                        check_before_batch: bool = False):
+    """The host-gathered sampling loop, for runs that save their state after
+    every batch: ``step(start)`` returns host arrays, the batch's estimates
+    first; they are merged into ``moments`` (carried over from a resumed
+    state), and ``after_batch(batch, next_start)`` does the estimator's
+    bookkeeping (iteration counts, the stall policy, the state file). The
+    stopping rule is read right after each batch or, with
+    ``check_before_batch``, before the next one (the MLMC levels, whose
+    resumed state may already meet the rule). Returns the next sample
+    index."""
+    B = int(cfg.probe_batch)
+    stopper = ConfirmedStop(cfg.stop_confirm)
+
+    def stop() -> bool:
+        return stopper(should_stop(moments, tol_target, cfg.min_nr_ests), moments.count)
+
+    while start < cfg.max_nr_ests:
+        if check_before_batch and stop():
+            break
+        batch = step(start)
+        moments.update_batch(batch[0])
+        start += B
+        after_batch(batch, start)
+        if not check_before_batch and stop():
+            break
+    return start

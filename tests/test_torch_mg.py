@@ -94,10 +94,19 @@ def test_setup_hierarchy_matches_jax(fine_eigs):
 
 
 def test_setup_backend_device_waits():
+    """The device backend no longer waits for its slice: it builds the
+    levels the host backend builds, without stored smoother roots (the full
+    comparison with the JAX package is tests/test_torch_setup_device.py)."""
     cfg, _ = _cfgs(setup_backend="device")
     _, op = _ops(cfg)
-    with pytest.raises(NotImplementedError, match="G302"):
-        setup_hierarchy(op, cfg)
+    th = setup_hierarchy(op, cfg)
+    hh = setup_hierarchy(op, cfg.replace(setup_backend="host"))
+    assert th.sizes() == hh.sizes() == (4096, 1024, 256)
+    assert th.poly_roots is None and hh.poly_roots is not None
+    for i in range(1, th.nr_levels):
+        _close(th.levels[i].op.complex_matrix(), hh.levels[i].op.complex_matrix(), 1e-8)
+    with pytest.raises(ValueError, match="setup_backend"):
+        setup_hierarchy(op, cfg.replace(setup_backend="chip"))
 
 
 def test_block_stencil_packed_matvec(loaded):
@@ -163,13 +172,21 @@ def test_mg_solve_matches_jax(loaded, level):
 
 
 def test_gmres_smoother_waits(loaded):
+    """Neither the GMRES smoother nor a polynomial depth without stored
+    roots waits for its slice any more: both precondition a solve that
+    converges (parity with the JAX package: tests/test_torch_smoother.py)."""
     from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig
 
     _, _, _, th = loaded
-    with pytest.raises(NotImplementedError):
-        MGSolver(th, SolverConfig(smoother="gmres")).precond(0)
-    with pytest.raises(NotImplementedError):
-        MGSolver(th, SolverConfig(smoother="poly", smooth_iters=7)).precond(0)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal((2, th.sizes()[0])) + 1j * rng.standard_normal((2, th.sizes()[0]))
+    plain = MGSolver(th, SolverConfig(smoother="poly")).solve(b, 1e-9, precondition=False,
+                                                               max_restarts=2)
+    for sc in (SolverConfig(smoother="gmres"), SolverConfig(smoother="poly", smooth_iters=7)):
+        res = MGSolver(th, sc).solve(b, 1e-9)
+        assert float((res.resnorm / res.bnorm).max()) < 1e-9
+        assert not bool(res.stalled.any())
+    assert bool(plain.stalled.all())        # 40 unpreconditioned steps do not
 
 
 @pytest.mark.parametrize("stall_ratio", [None, 0.9])
