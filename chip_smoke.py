@@ -41,8 +41,9 @@
    estimates lie within 5 of their own reported standard errors of it.
 6. Holds K1 and K2 to their plain versions at the G101/G201 shapes (8
    probes, 16^2, complex128, to 1e-12) and K1-K3 at the G302 shapes (16
-   probes, 512^2, complex64), each with its bound and, for K1 and K2, the
-   torch.sparse call, as in phase 2.
+   probes, 512^2, complex64, and 8 probes, the block that each of two
+   sample ranks gives the replicated solver in phase 12), each with its
+   bound and, for K1 and K2, the torch.sparse call, as in phase 2.
 7. Runs the unchanged 16^2 profile (set_params("schwinger16") with
    function_tol 1e-12: complex128, GMRES smoother, k = 64) on a generated
    16^2 operator (SMALL_MATRIX at SMALL_MASS; schwinger16.mat is not in the
@@ -63,7 +64,24 @@
 11. Times the fused (z, A z) V-cycle (MGSolver.precond_matvec through
    fgmres's matvec_precond) beside the precond + matvec pair on one
    128-probe batch at the G102 shapes; the iteration counts must be equal.
-12. Prints the card's name and power limit, a JSON line with the kernels'
+12. Several ranks of torch.distributed on the one card (the gloo backend,
+   staged through the host), started through parallel/worker.py after the
+   kernels are built: K1 and K2 against their plain versions on the padded
+   local blocks of 2 and 4 x shards (8 and 16 probes), timed beside the
+   torch.sparse call on the same padded coefficients; the halo matvec on 2
+   and 4 x shards at 512^2 with 16 probes (kernel K1 on the padded block
+   against its plain version and against single-device K1, 1e-5 relative);
+   ShardedMGSolver.solve on a (2, 2) mesh at the G302 hierarchy against
+   MGSolver.solve on the same 16 probes (iteration counts equal or within 1
+   per row, x within 10 times the solve tolerance); psum_moments and
+   allgather_moments across 4 ranks against the host Chan merge;
+   gateway.G302(devices=2) (probe batches split) and gateway.G302(devices=4)
+   with DMLMC_X_SHARDS=2 (the lattice cut in two as well): trace within 1%
+   of 115047.9, the nr_ests of a one-rank run on the same host-gathered
+   loop, the same result on every rank, stalled rows within
+   max_stalled_frac, K1 and K2 launched by rank 0 on the sharded path;
+   prints walls, phase seconds and the transport share of sampling.
+13. Prints the card's name and power limit, a JSON line with the kernels'
    numbers (launches per path), and as the last line
    {"ok": true, "device": {...}}.
 
@@ -250,10 +268,12 @@ def _check(label, cases, C, v, w, nx, nt, small=None, tol=TOL_C64) -> dict:
     return out
 
 
-def _library_ms(op, v, w) -> dict:
+def _library_ms(C, v, w, nx, nt) -> dict:
     """The yardsticks of K1 and K2: the one torch.sparse call that computes
-    each with the same operator (CSR) on the same blocks, which the port
-    never makes: ``A @ v`` for K1, ``torch.addmm(b, A, x, alpha=-1)`` for K2.
+    each with the same operator (the CSR matrix of the coefficients ``C``,
+    periodic over ``nx`` rows, zero coefficients dropped) on the same blocks,
+    which the port never makes: ``A @ v`` for K1,
+    ``torch.addmm(b, A, x, alpha=-1)`` for K2.
     Returns {kernel name: (ms, max abs difference from the kernel)}, with
     (None, reason) where the installed PyTorch has no such complex CSR
     product on the card."""
@@ -262,16 +282,17 @@ def _library_ms(op, v, w) -> dict:
     from deflatedmlmc_schwinger_tpu_torch.io import csr_from_stencil
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
-    A = csr_from_stencil(op.host_coeffs())
+    A = csr_from_stencil(C.cpu().numpy())
+    A.eliminate_zeros()
     At = torch.sparse_csr_tensor(
         torch.from_numpy(A.indptr.astype("int64")), torch.from_numpy(A.indices.astype("int64")),
         torch.from_numpy(A.data), size=A.shape).to(v.device)
     vt, wt = v.T.contiguous(), w.T.contiguous()
     calls = {
         "stencil_matvec": (lambda: At @ vt,
-                           lambda: sk.stencil_matvec(op.coeffs, v, op.nx, op.nt)),
+                           lambda: sk.stencil_matvec(C, v, nx, nt)),
         "stencil_residual": (lambda: torch.addmm(vt, At, wt, alpha=-1),
-                             lambda: sk.stencil_residual(op.coeffs, v, w, op.nx, op.nt)),
+                             lambda: sk.stencil_residual(C, v, w, nx, nt)),
     }
     out = {}
     for name, (library, kernel) in calls.items():
@@ -288,6 +309,14 @@ def _library_ms(op, v, w) -> dict:
                                f"(max abs difference {diff:.3e})")
         out[name] = (_time_ms(library), diff)
     return out
+
+
+def _add_library_ms(label, results, C, v, w, nx, nt) -> None:
+    for name, (lib_ms, lib_note) in _library_ms(C, v, w, nx, nt).items():
+        results[name]["library_ms"] = lib_ms
+        if lib_ms is not None:
+            print(f"[kernels {label}] {name}: torch.sparse CSR call {lib_ms:.4f} ms "
+                  f"(max abs difference from the kernel {lib_note:.3e})")
 
 
 def check_window_stress(device) -> int:
@@ -342,7 +371,8 @@ def _roots(op, depth: int):
 def check_kernels(device) -> dict:
     """Phases 2 and 6: every kernel against its plain version at the G301
     shapes (and on a small c128 lattice), the G102 shapes, the G101/G201
-    shapes (complex128, K1 and K2) and the G302 shapes."""
+    shapes (complex128, K1 and K2) and the G302 shapes: 16 probes as on one
+    rank, and 8 as each of two sample ranks gives the replicated solver."""
     import torch
 
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
@@ -355,8 +385,10 @@ def check_kernels(device) -> dict:
                            dtype=torch.complex128, device=device)
     small = (sop.coeffs, _randn((3, sop.n), torch.complex128, gen, device),
              _randn((3, sop.n), torch.complex128, gen, device), sop.nx, sop.nt)
+    g302 = set_params("schwinger512")
     for label, cfg in (("G301", set_params("schwinger256")), ("G102", flagship_cfg()),
-                       ("G101", small_cfg()), ("G302", set_params("schwinger512"))):
+                       ("G101", small_cfg()), ("G302", g302),
+                       ("G302 B8", g302.replace(probe_batch=g302.probe_batch // 2))):
         op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims,
                               dtype=cfg.dtype, device=device)
         # K3 is a kernel of the polynomial smoother's paths only
@@ -371,11 +403,7 @@ def check_kernels(device) -> dict:
         results[label] = _check(label, _cases(sk, roots), op.coeffs, v, w, op.nx, op.nt,
                                 small if label == "G301" else None,
                                 TOL_C64 if cfg.dtype == torch.complex64 else TOL_C128)
-        for name, (lib_ms, lib_note) in _library_ms(op, v, w).items():
-            results[label][name]["library_ms"] = lib_ms
-            if lib_ms is not None:
-                print(f"[kernels {label}] {name}: torch.sparse CSR call {lib_ms:.4f} ms "
-                      f"(max abs difference from the kernel {lib_note:.3e})")
+        _add_library_ms(label, results[label], op.coeffs, v, w, op.nx, op.nt)
         del op, v, w
     check_window_stress(device)
     return results
@@ -660,6 +688,304 @@ def dense_displaced_trace(device):
     return value
 
 
+# ---- phase 12: several ranks on the one card ---------------------------------
+
+X_SHARDS = (2, 4)
+SOLVE_TOL_FACTOR = 10.0      # sharded x within this many solve tolerances
+
+
+def _g302_operator(device):
+    from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+
+    cfg = set_params("schwinger512")
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims, dtype=cfg.dtype,
+                          device=device)
+    return cfg, op
+
+
+def _g302_probes(cfg, op):
+    from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
+
+    return make_probe_source("torch", cfg.seed, op.device)(0, cfg.probe_batch, op.n, cfg.dtype)
+
+
+def rank_halo(x_shards: int) -> dict:
+    """One rank of the halo check: its block of D v through kernel K1 on the
+    padded block, through the plain version, and the whole product through
+    single-device K1, all at the G302 shapes with 16 probes."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+    from deflatedmlmc_schwinger_tpu_torch.parallel import halo, make_mesh
+    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import rank_device
+
+    device = rank_device("cuda")
+    cfg, op = _g302_operator(device)
+    # every rank draws the same block: same seed, same kind of device
+    v = _randn((cfg.probe_batch, op.n), cfg.dtype,
+               torch.Generator(device=device).manual_seed(99), device)
+    mesh = make_mesh((1, x_shards), ("samples", "x"))
+    sh = halo.shard_coeffs(op, mesh, "x")
+    blk = halo.local_block(v, mesh, op.nx, op.nt)
+    sk.reset_launch_counts()
+    got = halo.halo_apply(sh, blk)
+    launches = sk.launch_counts()["stencil_matvec"]
+    plain = halo._halo_kernel(sh.coeffs, blk, *halo.halo_rows(sh, blk))
+    whole = halo.gather_blocks(got, mesh)
+    single = op.matvec(v)
+    whole_plain = sk.stencil_matvec_plain(op.coeffs, v, op.nx, op.nt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        halo.halo_apply(sh, blk)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, vs_plain=_rel_err(got, plain), vs_single=_rel_err(whole, single),
+                vs_whole_plain=_rel_err(whole, whole_plain), launches=launches, finite=bool(torch.isfinite(whole).all()),
+                apply_ms=1e3 * (time.perf_counter() - t0) / 20,
+                local_shape=tuple(blk.shape))
+
+
+def rank_sharded_solve(hier_path: str) -> dict:
+    """One rank of the solve check: ShardedMGSolver.solve on a (2, 2) mesh
+    against MGSolver.solve, same hierarchy, same 16 probes."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.config import pin_full_precision_matmuls
+    from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+    from deflatedmlmc_schwinger_tpu_torch.parallel import ShardedMGSolver, make_mesh
+    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import (
+        rank_device,
+        reset_transport_stats,
+        transport_stats,
+    )
+    from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import load_hierarchy
+
+    pin_full_precision_matmuls()
+    device = rank_device("cuda")
+    cfg, op = _g302_operator(device)
+    hier = load_hierarchy(hier_path, device, cfg.dtype)
+    b = _g302_probes(cfg, op)
+    mesh = make_mesh((2, 2), ("samples", "x"))
+    ss = ShardedMGSolver(hier, mesh, cfg.solver)
+    ss.solve(b, cfg.function_tol)                     # warm-up
+    sk.reset_launch_counts()
+    reset_transport_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ss.solve(b, cfg.function_tol)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    counts, moved = sk.launch_counts(), dict(transport_stats)
+    solver = MGSolver(hier, cfg.solver)
+    solver.solve(b, cfg.function_tol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = solver.solve(b, cfg.function_tol)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, iters=res.iters.tolist(), ref_iters=ref.iters.tolist(),
+                dx=_rel_err(res.x, ref.x), relres=float((res.resnorm / res.bnorm).max()),
+                stalled=int(res.stalled.sum()), counts=counts, transport=moved,
+                sharded_s=sharded_s, replicated_s=time.perf_counter() - t0)
+
+
+def rank_moments() -> dict:
+    """One rank of the moments check: psum_moments over its share of 64
+    seeded estimates on the card, and allgather_moments of its own
+    RunningMoments."""
+    import numpy as np
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.parallel import (
+        allgather_moments,
+        make_mesh,
+        psum_moments,
+    )
+    from deflatedmlmc_schwinger_tpu_torch.trace.stats import RunningMoments
+
+    mesh = make_mesh()
+    es = _moment_samples().reshape(mesh.size, -1)[mesh.rank]
+    local = RunningMoments()
+    local.update_batch(es)
+    merged = allgather_moments(local)
+    cnt, mre, mim, m2 = psum_moments(
+        torch.from_numpy(es.astype(np.complex64)).to(mesh.device), mesh.groups["samples"])
+    return dict(merged=(merged.count, merged.mean, merged.m2),
+                psum=(float(cnt), complex(float(mre), float(mim)), float(m2)))
+
+
+def _moment_samples():
+    import numpy as np
+
+    rng = np.random.default_rng(77)
+    return 100.0 + rng.standard_normal(64) + 1j * rng.standard_normal(64)
+
+
+def check_padded_kernels(device) -> dict:
+    """K1 and K2 against their plain versions on the padded local blocks of
+    the lattice-sharded path: (B, 2, X/k + 2, 512) against coefficients with
+    two rows of zeros, for k = 2 and 4 x shards and 8 and 16 probes. The
+    library yardstick is the CSR product with the same padded coefficients."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=device).manual_seed(4242)
+    _, op = _g302_operator(device)
+    out = {}
+    for k in X_SHARDS:
+        xl = op.nx // k
+        padded = torch.nn.functional.pad(op.coeffs[:, :, :, :xl], (0, 0, 1, 1)).contiguous()
+        for B in (8, 16):
+            label = f"G302 x{k} B{B}"
+            n = 2 * (xl + 2) * op.nt
+            v = _randn((B, n), op.dtype, gen, device)
+            w = _randn((B, n), op.dtype, gen, device)
+            out[label] = _check(label, _cases(sk, {}), padded, v, w, xl + 2, op.nt)
+            _add_library_ms(label, out[label], padded, v, w, xl + 2, op.nt)
+    return out
+
+
+def run_g302_ranks(label: str, devices: int, x_shards: int, cfg, reference) -> dict:
+    """gateway.G302(devices=N) as a user calls it, held to the JAX package's
+    recorded trace and to ``reference``, the one-rank run on the same loop."""
+    import math
+    import os
+
+    from deflatedmlmc_schwinger_tpu_torch import gateway
+
+    os.environ["DMLMC_X_SHARDS"] = str(x_shards)
+    t0 = time.perf_counter()
+    try:
+        r = gateway.G302(device="cuda", devices=devices)
+    finally:
+        del os.environ["DMLMC_X_SHARDS"]
+    wall = time.perf_counter() - t0
+    tr = complex(r["trace"])
+    phases, moved, counts = r["phase_seconds"], r["transport_seconds"], r["kernel_launches"]
+    diff = abs(tr - reference["trace"]) / abs(reference["trace"])
+    print(f"[{label}] backend {r['backend']}, ranks share cuda:0; trace {tr} nr_ests "
+          f"{r['nr_ests']} function_iters {r['function_iters']} stalled_rows "
+          f"{r['stalled_rows']} ranks agree {r['ranks_agree']} {r['ranks_differ_in'] or ''}; one-rank run on the same loop: "
+          f"nr_ests {reference['nr_ests']} function_iters {reference['function_iters']}, "
+          f"relative trace difference {diff:.3e}; wall {wall:.3f} s (ranks' start included)")
+    print(f"[{label}] rank 0 phase seconds " + " ".join(
+        f"{k}={phases.get(k, 0.0):.4f}" for k in ("mg_setup", "defl_setup", "rough_trace",
+                                                   "sampling"))
+          + f"; in transport {' '.join(f'{k}={v:.4f}' for k, v in moved.items())}; "
+          f"sampling: {phases['sampling'] / (r['nr_ests'] / cfg.probe_batch):.4f} s per batch "
+          f"of {cfg.probe_batch}, {moved['sampling'] / phases['sampling']:.1%} of it in "
+          f"transport (waits for the other ranks included)")
+    print(f"[{label}] rank 0 kernel launches {counts}")
+    if not r["ranks_agree"]:
+        raise RuntimeError(f"{label}: the ranks returned different results")
+    if not all(math.isfinite(x) for x in (tr.real, tr.imag, r["std_dev"])):
+        raise RuntimeError(f"{label} produced a non-finite result")
+    if abs(tr - REFERENCE_TRACE_G302) > cfg.trace_tol * REFERENCE_TRACE_G302:
+        raise RuntimeError(f"{label} trace {tr} is not within {cfg.trace_tol:.0%} of "
+                           f"{REFERENCE_TRACE_G302}")
+    if r["nr_ests"] != reference["nr_ests"]:
+        raise RuntimeError(f"{label} took {r['nr_ests']} probes, the one-rank run "
+                           f"{reference['nr_ests']}")
+    solved = r["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
+    if r["stalled_rows"] > cfg.max_stalled_frac * solved:
+        raise RuntimeError(f"{label}: {r['stalled_rows']} stalled rows of {solved}")
+    must = ("stencil_matvec", "stencil_residual") + (
+        () if x_shards > 1 else ("stencil_poly_smooth",))
+    missing = [k for k in must if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{label}: rank 0 did not launch {missing}")
+    if x_shards > 1 and counts["stencil_poly_smooth"]:
+        raise RuntimeError(f"{label} launched K3, which the lattice-sharded path does not use")
+    return dict(counts=counts, wall=wall, result=r)
+
+
+def check_parallel(device) -> dict:
+    """Phase 12. Returns dict(kernels=the padded-block rows, counts={path:
+    rank 0's launches})."""
+    import numpy as np
+
+    from deflatedmlmc_schwinger_tpu_torch.mg import setup_hierarchy
+    from deflatedmlmc_schwinger_tpu_torch.parallel import make_mesh
+    from deflatedmlmc_schwinger_tpu_torch.parallel.worker import launch
+    from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson
+    from deflatedmlmc_schwinger_tpu_torch.trace.stats import RunningMoments
+    from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import save_hierarchy
+
+    padded = check_padded_kernels(device)
+
+    for k in X_SHARDS:
+        t0 = time.perf_counter()
+        ranks = launch("chip_smoke:rank_halo", k, args=(k,), timeout_s=300)
+        print(f"[halo x{k}] 512^2, 16 probes, local blocks {ranks[0]['local_shape']}: K1 on the "
+              f"padded block vs its plain version "
+              f"{max(r['vs_plain'] for r in ranks):.3e}, gathered vs single-device K1 "
+              f"{max(r['vs_single'] for r in ranks):.3e}, gathered vs the plain stencil on the "
+              f"whole lattice {max(r['vs_whole_plain'] for r in ranks):.3e} (relative, worst "
+              f"rank; the plain halo version adds its taps in the kernel's order); "
+              f"{ranks[0]['apply_ms']:.3f} ms per apply with its ring exchange; "
+              f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        for r in ranks:
+            if not r["finite"] or r["launches"] != 1 or max(
+                    r["vs_plain"], r["vs_single"], r["vs_whole_plain"]) > TOL_C64:
+                raise RuntimeError(f"halo matvec on {k} x shards, rank {r['rank']}: {r}")
+
+    cfg, op = _g302_operator(device)
+    t0 = time.perf_counter()
+    hier = setup_hierarchy(op, cfg)
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        hier_path = str(Path(tmp) / "hierarchy.npz")
+        save_hierarchy(hier, hier_path)
+        t0 = time.perf_counter()
+        ranks = launch("chip_smoke:rank_sharded_solve", 4, args=(hier_path,), timeout_s=600)
+        solve_wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    tol = cfg.solver.effective_tol(cfg.function_tol, cfg.dtype)
+    print(f"[sharded solve] mesh (2, 2), G302 hierarchy (built in {setup_s:.2f} s), 16 probes, "
+          f"tol {tol:g}: iterations sharded {r0['iters']} replicated {r0['ref_iters']}; "
+          f"x differs by {r0['dx']:.3e} relative; worst relative residual {r0['relres']:.3e}; "
+          f"stalled {r0['stalled']}; rank 0 launches {r0['counts']}; one solve "
+          f"{r0['sharded_s']:.3f} s sharded ({r0['transport']['seconds']:.3f} s in "
+          f"{r0['transport']['calls']} transport calls, {r0['transport']['bytes'] / 1e6:.1f} MB) "
+          f"against {r0['replicated_s']:.3f} s replicated with 4 ranks taking turns on the "
+          f"card; {solve_wall:.1f} s with the ranks' start")
+    for r in ranks:
+        if (r["iters"], r["dx"]) != (r0["iters"], r0["dx"]):
+            raise RuntimeError("the ranks of the sharded solve hold different results")
+        if max(abs(a - b) for a, b in zip(r["iters"], r["ref_iters"])) > 1:
+            raise RuntimeError(f"sharded iteration counts {r['iters']} vs {r['ref_iters']}")
+        if r["dx"] > SOLVE_TOL_FACTOR * tol or r["stalled"] or r["relres"] > tol:
+            raise RuntimeError(f"sharded solve, rank {r['rank']}: {r}")
+        if r["counts"]["stencil_matvec"] <= 0 or r["counts"]["stencil_residual"] <= 0:
+            raise RuntimeError(f"sharded solve, rank {r['rank']} launched {r['counts']}")
+
+    want = RunningMoments()
+    want.update_batch(_moment_samples())
+    for r in launch("chip_smoke:rank_moments", 4, timeout_s=300):
+        n, mean, m2 = r["merged"]
+        pn, pmean, pm2 = r["psum"]
+        if (n != want.count or abs(mean - want.mean) > 1e-12 or abs(m2 - want.m2) > 1e-9
+                or pn != want.count or abs(pmean - want.mean) > 1e-4 * abs(want.mean)
+                or abs(pm2 - want.m2) > 0.05 * want.m2):
+            raise RuntimeError(f"moment reductions {r} against the host merge {want}")
+    print(f"[moments] 4 ranks: allgather_moments equals the host Chan merge (n {want.count}, "
+          f"mean to 1e-12, m2 to 1e-9); psum_moments in float32 on the card: mean to 1e-4 "
+          f"relative, m2 {pm2:.4f} against {want.m2:.4f}")
+
+    # the one-rank run on the host-gathered loop the mesh runs take
+    ref = hutchinson(op, cfg, hier=hier, mesh=make_mesh((1,), device=device), verbose=False)
+    print(f"[G302 one rank, host-gathered loop] trace {complex(ref['trace'])} nr_ests "
+          f"{ref['nr_ests']} function_iters {ref['function_iters']} sampling "
+          f"{ref['timer'].totals['sampling']:.4f} s")
+    del hier
+    counts = {}
+    for label, devices, xs in (("G302 2 ranks", 2, 1), ("G302 4 ranks x2", 4, 2)):
+        counts[label] = run_g302_ranks(label, devices, xs, cfg, ref)["counts"]
+    return dict(kernels=padded, counts=counts)
+
+
 def main() -> None:
     import torch
 
@@ -739,6 +1065,10 @@ def main() -> None:
 
     check_checkpoint_resume(device)
     time_fused_precond_matvec(device)
+    torch.cuda.empty_cache()
+    ranks = check_parallel(device)
+    kernels.update(ranks["kernels"])
+    counts.update(ranks["counts"])
 
     entries = []
     for name, replaces in REPLACES.items():
@@ -746,8 +1076,8 @@ def main() -> None:
         depth4_key = name if name != "stencil_poly_smooth" else f"{name} depth 4"
         k102 = kernels["G102"][key]
         # the other shapes a path gives this kernel (K3 is on no 16^2 path)
-        others = {lbl: kernels[lbl][depth4_key] for lbl in ("G301", "G302", "G101")
-                  if depth4_key in kernels[lbl]}
+        others = {lbl: res[depth4_key] for lbl, res in kernels.items()
+                  if lbl != "G102" and depth4_key in res}
         per_path = {p: c[name] for p, c in counts.items()}
         entry = dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=replaces,

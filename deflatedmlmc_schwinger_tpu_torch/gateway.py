@@ -3,12 +3,13 @@
 
 ``set_params`` holds all five configurations as data, field for field the
 JAX package's (the reasons behind each tuned knob are documented there).
-All six entries run here on one device: G101/G201 (the 16^2 profile, GMRES
-smoother, complex128), G102/G202 (the tuned 128^2 profile), G301 (generated
-256^2) and G302 (generated 512^2; the profile keeps the host setup backend,
-with the fine-level test vectors from the device CheFSI). G302 over several
-devices, with probe batches or the lattice sharded, waits for the parallel
-slice (ROADMAP.md queue).
+All six entries run here: G101/G201 (the 16^2 profile, GMRES smoother,
+complex128), G102/G202 (the tuned 128^2 profile), G301 (generated 256^2)
+and G302 (generated 512^2; the profile keeps the host setup backend, with
+the fine-level test vectors from the device CheFSI). G302 also runs over
+several ranks of ``torch.distributed``, one per device, with the probe
+batches split over them and, with DMLMC_X_SHARDS=k, the lattice cut over k
+of them (parallel/).
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ from typing import Dict
 
 import torch
 
-from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig, TraceConfig
+from deflatedmlmc_schwinger_tpu_torch.config import (
+    SolverConfig,
+    TraceConfig,
+    pin_full_precision_matmuls,
+)
 from deflatedmlmc_schwinger_tpu_torch.examples import EXAMPLE_001, EXAMPLE_002
 
 _SCHWINGER128_COMMON = dict(
@@ -188,15 +193,54 @@ def G301(*, device="cuda"):
 
 
 def G302(*, device="cuda", devices: int = 1):
-    """Deflated Hutchinson on a generated 512^2 quenched configuration, on
-    one device. ``devices`` > 1 (probe batches sharded over several devices)
-    and DMLMC_X_SHARDS > 1 (the lattice decomposed over devices) are the
-    JAX package's multi-chip forms of this entry and are not ported yet."""
-    if int(devices) != 1 or int(os.environ.get("DMLMC_X_SHARDS", "1")) > 1:
-        raise NotImplementedError(
-            "G302 over more than one device waits for the parallel slice "
-            "(ROADMAP.md queue: parallel); run it with devices=1")
-    return EXAMPLE_001(set_params("schwinger512"), device=device)
+    """Deflated Hutchinson on a generated 512^2 quenched configuration, with
+    the probe batches split over all ranks of the process group.
+
+    Several ranks: run one process per device under ``torchrun`` (or with
+    RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set), or pass
+    ``devices`` > 1 and the entry starts that many ranks on this host itself
+    (parallel/worker.py) and returns rank 0's result as host numbers. Every
+    rank gets the same result; rank 0 prints the report. DMLMC_X_SHARDS=k
+    also cuts the 512^2 lattice over k ranks per probe group
+    (parallel/sharded_solve.py). Ranks that outnumber the cards share them
+    over the gloo backend."""
+    import torch.distributed as dist
+
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.parallel import initialize, make_mesh
+    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import rank_device
+    from deflatedmlmc_schwinger_tpu_torch.reporting import print_post_results, result_to_json
+    from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson
+
+    in_group = dist.is_available() and dist.is_initialized()
+    if int(devices) > 1 and not in_group and "WORLD_SIZE" not in os.environ:
+        from deflatedmlmc_schwinger_tpu_torch.parallel.worker import launch
+
+        return launch("deflatedmlmc_schwinger_tpu_torch.parallel.worker:run_entry",
+                      int(devices), args=("G302", str(device)), device=str(device))[0]
+    rank = initialize(device=device)
+    nranks = dist.get_world_size() if dist.is_initialized() else 1
+    if nranks == 1:
+        # one device: no mesh machinery at all
+        return EXAMPLE_001(set_params("schwinger512"), device=device)
+    cfg = set_params("schwinger512")
+    xs = int(os.environ.get("DMLMC_X_SHARDS", "1"))
+    if xs > 1 and nranks % xs == 0:
+        mesh = make_mesh((nranks // xs, xs), (cfg.sample_axis, cfg.lattice_axis),
+                         device=device)
+    else:
+        mesh = make_mesh(device=device)  # all ranks on the 'samples' axis
+    nshards = mesh.shape[cfg.sample_axis]
+    if cfg.probe_batch % nshards:
+        cfg = cfg.replace(probe_batch=nshards * max(1, cfg.probe_batch // nshards))
+    pin_full_precision_matmuls()
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims,
+                          dtype=cfg.complex_dtype(), device=rank_device(device))
+    result = hutchinson(op, cfg, mesh=mesh)
+    if rank == 0:
+        print_post_results(cfg, result, "hutchinson")
+        print(result_to_json(cfg, result, "hutchinson"))
+    return result
 
 
 ENTRIES = {"G101": G101, "G102": G102, "G201": G201, "G202": G202,

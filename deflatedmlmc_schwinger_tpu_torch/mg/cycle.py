@@ -61,25 +61,28 @@ def _solve_hpd_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def gmres_smoother(matvec: Callable, r: torch.Tensor, iters: int) -> torch.Tensor:
+def gmres_smoother(matvec: Callable, r: torch.Tensor, iters: int,
+                   group=None) -> torch.Tensor:
     """k-step GMRES from a zero initial guess on a batch r (B, n): modified
     Gram-Schmidt Arnoldi, then the normal equations (H^H H) y = H^H (beta e1)
     by ``_solve_hpd_small``. The iteration count is fixed; beta and the
     subdiagonal norms are guarded by the dtype's smallest normal number, so
-    a row whose residual is already zero yields zeros."""
+    a row whose residual is already zero yields zeros. ``group``: the ranks
+    over which the inner products are summed when r is this rank's part of
+    lattice-sharded vectors (parallel/sharded_solve.py)."""
     B = r.shape[0]
     m = int(iters)
     tiny = torch.finfo(r.real.dtype).tiny
-    beta = _norm(r)
+    beta = _norm(r, group)
     Vs = [r / torch.clamp(beta, min=tiny)[:, None]]
     H = torch.zeros((B, m + 1, m), dtype=r.dtype, device=r.device)
     for j in range(m):
         w = matvec(Vs[j])
         for i in range(j + 1):
-            hij = _dot(Vs[i], w)
+            hij = _dot(Vs[i], w, group)
             H[:, i, j] = hij
             w = w - hij[:, None] * Vs[i]
-        hn = _norm(w)
+        hn = _norm(w, group)
         H[:, j + 1, j] = hn
         Vs.append(w / torch.clamp(hn, min=tiny)[:, None])
     y = _solve_hpd_small(H.mH @ H, H[:, 0, :].conj() * beta[:, None])
@@ -179,13 +182,15 @@ class PolySmoother:
 class GmresSmoother:
     """Fixed-step GMRES smoothing (``gmres_smoother``) with the interface of
     PolySmoother. On the fine stencil level D is applied by kernel K1 and
-    the smoothed residual comes from kernel K2."""
+    the smoothed residual comes from kernel K2. ``group`` as in
+    ``gmres_smoother``."""
 
-    def __init__(self, iters: int):
+    def __init__(self, iters: int, group=None):
         self.iters = int(iters)
+        self.group = group
 
     def smooth(self, op, r: torch.Tensor) -> torch.Tensor:
-        return gmres_smoother(op.matvec, r, self.iters)
+        return gmres_smoother(op.matvec, r, self.iters, self.group)
 
     def smooth_residual(self, op, b: torch.Tensor):
         x = self.smooth(op, b)
@@ -314,9 +319,14 @@ class MGSolver:
         level: int = 0,
         precondition: bool = True,
         max_restarts: Optional[int] = None,
+        pred_group=None,
     ) -> FGMRESResult:
         """Solve A_level x = b for a batch b of shape (B, n_level); a numpy
-        array is uploaded to the level's device and dtype first."""
+        array is uploaded to the level's device and dtype first.
+        ``pred_group``: when b holds this rank's rows of a batch that is
+        split over several ranks, the ranks over which the loop predicates
+        are any-reduced, so that every row takes the steps it takes when one
+        rank solves the whole batch (solvers/fgmres.py)."""
         op = self.hier.levels[level].op
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.asarray(b)).to(device=self.hier.coarsest_inv.device,
@@ -332,11 +342,17 @@ class MGSolver:
             precond=self.precond(level) if precondition else None,
             stall_ratio=self.cfg.stall_ratio,
             stall_cycles=self.cfg.stall_cycles,
+            pred_group=pred_group,
         )
         # kept as device scalars: converting here would sync every solve.
         # One coarsest-level application is charged per outer iteration of
         # the slowest row (the reference's rule, up to batching).
         iters = res.iters.max()
+        if pred_group is not None:
+            # the slowest row of the whole batch, as on one rank
+            from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import all_gather_cat
+
+            iters = all_gather_cat(iters[None], pred_group).max()
         self.num_iters = iters
         self.total_solve_calls += 1
         self.coarsest_lev_iters[level] = self.coarsest_lev_iters[level] + iters

@@ -9,6 +9,12 @@ in which a row was still active. Restart cycles end on the TRUE residual
 cutoff ends the solve after ``stall_cycles`` consecutive cycles in which no
 active row improved by more than (1 - stall_ratio). The loops are Python
 loops; each Arnoldi step reads one bool (any row still active) on the host.
+
+Inside a lattice-sharded solve (parallel/sharded_solve.py) the vector axis
+holds this rank's part of the lattice: ``group`` then sums every norm and
+inner product over the ranks that share the rows, and ``pred_group``
+any-reduces every bool that steers a loop, so that all ranks take the same
+number of steps. Without them no collective is made.
 """
 
 from __future__ import annotations
@@ -27,13 +33,35 @@ class FGMRESResult(NamedTuple):
     stalled: torch.Tensor    # (B,) bool: final residual above tol
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((x.real ** 2 + x.imag ** 2).sum(-1))
+def _psum(s: torch.Tensor, group) -> torch.Tensor:
+    """Sum of the ranks' partial sums over ``group`` (None: no ranks to sum
+    over, and no collective)."""
+    if group is None:
+        return s
+    # imported here: parallel/ imports the solvers
+    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import all_sum
+
+    return all_sum(s, group)
 
 
-def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _gany(flag: torch.Tensor, group) -> bool:
+    """The host bool of ``flag``, true on every rank of ``group`` when it is
+    true on any: ranks that share a collective inside a loop must agree on
+    its trip count, or the next collective never completes."""
+    if group is None:
+        return bool(flag)
+    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import all_any
+
+    return all_any(flag, group)
+
+
+def _norm(x: torch.Tensor, group=None) -> torch.Tensor:
+    return torch.sqrt(_psum((x.real ** 2 + x.imag ** 2).sum(-1), group))
+
+
+def _dot(x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
     """<x, y> = sum conj(x) y along the last axis."""
-    return (x.conj() * y).sum(-1)
+    return _psum((x.conj() * y).sum(-1), group)
 
 
 def _givens(a: torch.Tensor, b: torch.Tensor, tiny: float):
@@ -57,7 +85,8 @@ def _givens(a: torch.Tensor, b: torch.Tensor, tiny: float):
 def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  x0: torch.Tensor, tol_abs: torch.Tensor, restart: int,
                  max_restarts: int, stall_ratio: Optional[float],
-                 stall_cycles: int, matvec_precond: Optional[Callable] = None):
+                 stall_cycles: int, matvec_precond: Optional[Callable] = None,
+                 group=None, pred_group=None):
     B, n = b.shape
     m = restart
     cdtype = b.dtype
@@ -68,14 +97,14 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
     Z = torch.empty((m, B, n), dtype=cdtype, device=dev)
 
     x = x0
-    resnorm = _norm(b - matvec(x0))
+    resnorm = _norm(b - matvec(x0), group)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     cycles = 0
     stalls = 0
     while (cycles < max_restarts and stalls < stall_cycles
-           and bool((resnorm > tol_abs).any())):
+           and _gany((resnorm > tol_abs).any(), pred_group)):
         r = b - matvec(x)
-        beta = _norm(r)
+        beta = _norm(r, group)
         V[0] = r / torch.clamp(beta, min=tiny)[:, None]
         H = torch.zeros((B, m + 1, m), dtype=cdtype, device=dev)
         g = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
@@ -84,7 +113,7 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
         sn = torch.zeros((m, B), dtype=cdtype, device=dev)
         res = beta
         j = 0
-        while j < m and bool((res > tol_abs).any()):
+        while j < m and _gany((res > tol_abs).any(), pred_group):
             active = res > tol_abs
             iters += active.to(torch.int32)
             if matvec_precond is not None:
@@ -97,10 +126,10 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
             Z[j] = z
             hcol = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
             for i in range(j + 1):           # modified Gram-Schmidt
-                hi = _dot(V[i], w)
+                hi = _dot(V[i], w, group)
                 w = w - hi[:, None] * V[i]
                 hcol[:, i] = hi
-            hnorm = _norm(w)
+            hnorm = _norm(w, group)
             hcol[:, j + 1] = hnorm
             V[j + 1] = w / torch.clamp(hnorm, min=tiny)[:, None]
             for i in range(j):
@@ -135,12 +164,12 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
             d = R[:, jj, jj]
             y[:, jj] = s * d.conj() / torch.clamp(d.real ** 2 + d.imag ** 2, min=tiny)
         x = x + torch.einsum("jbn,bj->bn", Z[:j], y[:, :j])
-        true_res = _norm(b - matvec(x))
+        true_res = _norm(b - matvec(x), group)
         if stall_ratio is not None:
             # progress on the still-active rows only
             active_prev = torch.where(resnorm > tol_abs, resnorm,
                                       torch.zeros_like(resnorm))
-            progressing = bool((true_res < stall_ratio * active_prev).any())
+            progressing = _gany((true_res < stall_ratio * active_prev).any(), pred_group)
             stalls = 0 if progressing else stalls + 1
         resnorm = true_res
         cycles += 1
@@ -159,22 +188,34 @@ def fgmres(
     x0: Optional[torch.Tensor] = None,
     stall_ratio: Optional[float] = 0.9,
     stall_cycles: int = 2,
+    group=None,
+    pred_group=None,
 ) -> FGMRESResult:
     """Solve A x = b for a batch of complex right-hand sides b (B, n).
     ``stall_ratio=None`` disables the stall cutoff. ``matvec_precond``: an
     optional fused v -> (z, A z) with z = M v; when given it replaces the
     precond + matvec pair of every Arnoldi step (the true residuals at the
-    restart boundaries still use ``matvec``)."""
+    restart boundaries still use ``matvec``).
+
+    ``group``: set when the vector axis holds this rank's part of a
+    lattice-sharded vector; all norms and inner products then sum their
+    partial sums over it (a parallel/distributed.py Group).
+
+    ``pred_group``: the ranks over which the loop predicates are any-reduced.
+    It must cover every rank that runs collectives inside this solve or
+    inside ``matvec``/``precond``, also ranks that hold other rows: rows that
+    converge early ride on until the slowest row of the whole batch ends, as
+    they do on one device, at the cost of one scalar reduction per step."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if precond is None:
         precond = _identity
-    bnorm = _norm(b)
+    bnorm = _norm(b, group)
     tol_abs = tol * bnorm
     x, res, iters, cycles = _fgmres_impl(
         matvec, precond, b, x0, tol_abs, int(restart), int(max_restarts),
         None if stall_ratio is None else float(stall_ratio), int(stall_cycles),
-        matvec_precond,
+        matvec_precond, group, pred_group,
     )
     return FGMRESResult(x=x, resnorm=res, bnorm=bnorm, iters=iters,
                         cycles=cycles, stalled=res > tol_abs)

@@ -90,7 +90,9 @@ def solve_refined_host(basis_solver: MGSolver, op, rhs: torch.Tensor, tol: float
     instead of O(tol/sigma_min), which matters for the low-mode right-hand
     sides of the deflation corrections. Rows are cyclically padded to
     ``pad_to`` so every solve has the sampling batch's shape. An operator
-    without stencil coefficients gets no refinement."""
+    without stencil coefficients gets no refinement. A lattice-sharded
+    ``basis_solver`` hands the whole solution to every rank, so refinement
+    runs under a mesh as it does on one device."""
     k = rhs.shape[0]
 
     def pad(x: torch.Tensor) -> torch.Tensor:
@@ -121,9 +123,15 @@ def hutchinson_deflation(
     *,
     correction_mode: str = "solve",
     rounds: Optional[int] = None,
+    fine_solver=None,
 ) -> Deflation:
     """Deflation basis and exact correction for deflated Hutchinson on the
-    fine StencilOperator ``op``."""
+    fine StencilOperator ``op``.
+
+    ``fine_solver``: the lattice-sharded ShardedMGSolver; the basis solves
+    then run domain-decomposed with the basis rows split over the samples
+    axis. The replicated solver is kept when the basis size does not divide
+    over that axis."""
     if rounds is None:
         rounds = int(cfg.defl_subspace_rounds)
     k = int(cfg.nr_deflat_vctrs)
@@ -137,6 +145,12 @@ def hutchinson_deflation(
     # the setup solver profile (config defl_solver): these near-kernel
     # solves are stall-cutoff-bound, so a shallow smoother pays
     basis_solver = solver.derived(cfg.defl_solver)
+    if fine_solver is not None:
+        nsh = fine_solver.mesh.shape[fine_solver.sample_axis]
+        if k % nsh == 0:
+            # pad m to a multiple of the sample shards: equal slices per rank
+            m = ((m + nsh - 1) // nsh) * nsh
+            basis_solver = fine_solver
 
     def Q(v: torch.Tensor) -> torch.Tensor:
         return gamma3(op.matvec(v))
@@ -174,6 +188,15 @@ def hutchinson_deflation(
         raise ValueError(correction_mode)
     return Deflation(U=Ur.T, tr1=tr1, values=theta, resnorms=eig.resnorms,
                      stalled_rows=nstalled)
+
+
+def replicate_deflation(defl: Deflation, mesh) -> Deflation:
+    """Rank 0's deflation (basis, tr1, eigenvalues) on every rank of the
+    mesh: the basis is computed once and every rank projects its probes
+    against bit-identical copies."""
+    from deflatedmlmc_schwinger_tpu_torch.parallel.mesh import replicate
+
+    return replicate(defl, mesh)
 
 
 def mlmc_level_deflation(solver: MGSolver, level: int, k: int, cfg: TraceConfig,

@@ -29,8 +29,11 @@ level. So ``results[l]["level_complexity"]`` of a dense-exact level l, and
 ``total_complexity``, are lower here than there (in the 128^2 MLMC profile
 by 512^3 on level 2); every trace, deviation and count is the same.
 
-Not ported yet (raise NotImplementedError): the mesh and lattice-sharded
-branches (ROADMAP.md queue: parallel).
+With ``mesh`` every rank of the mesh makes the same call: each probe batch
+is split over the samples axis, the level-0 solves run lattice-sharded when
+the mesh has a lattice axis of more than one rank (coarse levels always run
+replicated), and every batch is gathered on the host, identical on every
+rank (trace/hutchinson.py).
 """
 
 from __future__ import annotations
@@ -62,9 +65,15 @@ from deflatedmlmc_schwinger_tpu_torch.trace.deflation import (
     deflate,
     hutchinson_deflation,
     mlmc_level_deflation,
+    replicate_deflation,
     solve_refined_host,
 )
-from deflatedmlmc_schwinger_tpu_torch.trace.hutchinson import hutchinson_step_batch
+from deflatedmlmc_schwinger_tpu_torch.trace.hutchinson import (
+    gather_rows,
+    hutchinson_step_batch,
+    make_fine_solver,
+    sample_rows,
+)
 from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
 from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
     ConfirmedStop,
@@ -161,16 +170,27 @@ def exact_difference_trace(hier: Hierarchy, level: int, skip_level: bool,
 
 def mlmc_step_batch(solver: MGSolver, cfg: TraceConfig, level: int,
                     defl: Deflation, probes: torch.Tensor, skip_level: bool,
-                    gather: bool = True,
-                    coarse_dense_inv: Optional[torch.Tensor] = None):
+                    fine_solver=None, gather: bool = True,
+                    coarse_dense_inv: Optional[torch.Tensor] = None, mesh=None):
     """One batch of difference-level estimates for (B, n_l) probes. Returns
     (estimates (B,), fine iterations (B,), coarse iterations (B,),
     coarse_level, stalled (B,)), on the host or, with ``gather=False``, as
     device tensors. ``coarse_dense_inv``: a dense inverse of the coarse
-    operator that replaces the iterative coarse solve by one matmul."""
+    operator that replaces the iterative coarse solve by one matmul.
+
+    ``fine_solver``: the lattice-sharded solver for the level-0 systems; it
+    takes the whole batch, and the rest of such a step runs on the whole
+    batch on every rank. ``mesh``: otherwise every rank takes its rows of
+    the batch and the results are gathered (trace/hutchinson.py
+    ``sample_rows``)."""
     hier = solver.hier
     fine, coarse, restrict, prolong = level_structure(solver, level, skip_level)
     coarsest = hier.nr_levels - 1
+    sharded_fine = fine_solver is not None and fine == 0
+    rows_mesh = None
+    if not sharded_fine:
+        probes, rows_mesh = sample_rows(probes, mesh, cfg)
+    pred_group = None if rows_mesh is None else rows_mesh.world
     x0 = probes
     if defl.U is not None and cfg.defl_type == "inexact_03":
         # oblique projector x - V (U^H A V)^{-1} U^H A x
@@ -182,7 +202,10 @@ def mlmc_step_batch(solver: MGSolver, cfg: TraceConfig, level: int,
         x_def = shift_rows_down(x_def, hier.levels[level].perm_shift)
         x_def = bblock_apply(hier, level, x_def)
 
-    res_f = solver.solve(x_def, cfg.function_tol, level=fine)
+    if sharded_fine:
+        res_f = fine_solver.solve(x_def, cfg.function_tol)
+    else:
+        res_f = solver.solve(x_def, cfg.function_tol, level=fine, pred_group=pred_group)
     e1 = (x0.conj() * res_f.x).sum(-1)
     xc = restrict(x_def)
     ones = torch.ones(x0.shape[0], dtype=torch.int32, device=x0.device)
@@ -191,18 +214,21 @@ def mlmc_step_batch(solver: MGSolver, cfg: TraceConfig, level: int,
     elif coarse_dense_inv is not None:
         y, iters2, stalled = xc @ coarse_dense_inv.T, ones, res_f.stalled
     else:
-        res_c = solver.solve(xc, cfg.function_tol, level=coarse)
+        res_c = solver.solve(xc, cfg.function_tol, level=coarse, pred_group=pred_group)
         y, iters2, stalled = res_c.x, res_c.iters, res_f.stalled | res_c.stalled
     e = e1 - (x0.conj() * prolong(y)).sum(-1)
     if not gather:
+        if rows_mesh is not None:
+            raise ValueError("a batch split over a mesh is gathered on the host")
         return e, res_f.iters, iters2, coarse, stalled
-    return (e.cpu().numpy(), res_f.iters.cpu().numpy(), iters2.cpu().numpy(), coarse,
-            stalled.cpu().numpy())
+    es, it1, it2, stall = gather_rows(rows_mesh, cfg, e, res_f.iters, iters2, stalled)
+    return es, it1, it2, coarse, stall
 
 
 def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
                        results, probe_source: str, skip_level: bool, log,
-                       exact_set, dense_invs, state, save_level) -> None:
+                       exact_set, dense_invs, state, save_level, fine_solver=None,
+                       mesh=None) -> None:
     """Optimal-allocation MLMC sampling: batches go one at a time to the
     level with the largest drop of the aggregate variance sqrt(sum V_l/n_l)
     per second of batch time, until the aggregate standard error meets the
@@ -226,8 +252,8 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
         lev = hier.levels[i]
         X = probes[i](starts[i], B, lev.n, lev.op.dtype)
         es, it1, it2, coarse, stall = mlmc_step_batch(
-            solver, cfg, i, defls[i], X, skip_level,
-            coarse_dense_inv=dense_invs.get(_coarse_level(i, skip_level)))
+            solver, cfg, i, defls[i], X, skip_level, fine_solver,
+            coarse_dense_inv=dense_invs.get(_coarse_level(i, skip_level)), mesh=mesh)
         moments[i].update_batch(es)
         results[i]["function_iters"] += int(np.sum(it1))
         results[coarse]["function_iters"] += int(np.sum(it2))
@@ -236,6 +262,16 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
         check_stalled(results[i]["stalled_rows"], moments[i].count,
                       cfg.max_stalled_frac, f"mlmc level {i}")
         dt = time.perf_counter() - t0
+        if mesh is not None:
+            # every rank must send the next batch to the same level: all take
+            # the slowest rank's time for this one
+            from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import (
+                all_gather_cat,
+            )
+
+            dt = float(all_gather_cat(
+                torch.tensor([dt], dtype=torch.float64, device=mesh.device),
+                mesh.world).max())
         c = costs[i]
         if len(c) == 1:
             c[0] = dt     # drop the first, warm-up-skewed measurement
@@ -274,13 +310,13 @@ def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,
 def _sequential_level(solver: MGSolver, cfg: TraceConfig, i: int, defl: Deflation,
                       level_trace_tol: float, results, probe_source: str,
                       skip_level: bool, coarse_dense_inv, log, state=None,
-                      save_level=None) -> RunningMoments:
+                      save_level=None, fine_solver=None, mesh=None) -> RunningMoments:
     """Sample difference level i to its own stopping rule; the coarse
     solves' iterations go to the coarse level. Without ``state`` the moments
     stay on the device (trace/stats.py sample_to_stop); with the
-    EstimatorState of a checkpointed run the level continues from its saved
-    moments and sample index on the host loop, and ``save_level`` persists
-    them after every batch."""
+    EstimatorState of a checkpointed run, or of a run over a mesh, the level
+    continues from its saved moments and sample index on the host loop, and
+    ``save_level`` persists them after every batch."""
     lev = solver.hier.levels[i]
     device = solver.hier.coarsest_inv.device
     rdt = real_dtype(lev.op.dtype)
@@ -295,7 +331,7 @@ def _sequential_level(solver: MGSolver, cfg: TraceConfig, i: int, defl: Deflatio
         def host_step(s: int):
             return mlmc_step_batch(
                 solver, cfg, i, defl, probes(s, B, lev.n, lev.op.dtype), skip_level,
-                coarse_dense_inv=coarse_dense_inv)
+                fine_solver, coarse_dense_inv=coarse_dense_inv, mesh=mesh)
 
         def after_batch(batch, next_start: int) -> None:
             _, it1, it2, coarse, stall = batch
@@ -314,7 +350,7 @@ def _sequential_level(solver: MGSolver, cfg: TraceConfig, i: int, defl: Deflatio
     def step(start: int):
         e, it1, it2, _, stall = mlmc_step_batch(
             solver, cfg, i, defl, probes(start, B, lev.n, lev.op.dtype), skip_level,
-            gather=False, coarse_dense_inv=coarse_dense_inv)
+            fine_solver, gather=False, coarse_dense_inv=coarse_dense_inv)
         coarse_iters[0] = coarse_iters[0] + it2.sum().to(rdt)
         return e, it1, stall
 
@@ -367,7 +403,11 @@ def mlmc(
     (hierarchy.npz) and the sampling state of every difference level
     (moments, next sample index, iterations) is saved after each batch
     (mlmc_state.json); an interrupted run resumes each level on the same
-    counter-keyed probe stream."""
+    counter-keyed probe stream.
+
+    ``mesh``: probe batches split over its samples axis, level-0 solves over
+    its lattice axis if it has one. Only rank 0 logs and writes
+    checkpoints."""
     # utils.checkpoint imports trace.stats, so it is imported here and not
     # at the top of this module
     from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import (
@@ -375,12 +415,10 @@ def mlmc(
         setup_or_load_hierarchy,
     )
 
-    if mesh is not None:
-        raise NotImplementedError("mlmc over a device mesh waits for its slice "
-                                  "(ROADMAP.md queue: parallel)")
     pin_full_precision_matmuls()
     timer = timer or PhaseTimer(op.device)
-    log = print if verbose else (lambda *a, **k: None)
+    lead = mesh is None or mesh.rank == 0
+    log = print if (verbose and lead) else (lambda *a, **k: None)
     state_ckpt = None
     if checkpoint_dir:
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -399,8 +437,13 @@ def mlmc(
 
     if solver is None:
         with timer.phase("mg_setup"):
-            if hier is None:
+            if hier is None and lead:
                 hier = setup_or_load_hierarchy(op, cfg, checkpoint_dir, log)
+            if mesh is not None:
+                # rank 0's hierarchy, bit-identical on every rank
+                from deflatedmlmc_schwinger_tpu_torch.parallel.mesh import replicate
+
+                hier = replicate(hier, mesh)
             solver = MGSolver(hier, cfg.solver)
     else:
         hier = solver.hier
@@ -408,6 +451,10 @@ def mlmc(
     if nr_levels < 3:
         raise ValueError("MLMC needs a hierarchy of at least three levels")
     log(f"MG hierarchy sizes: {hier.sizes()}")
+    fine_solver = make_fine_solver(hier, mesh, cfg, log)
+
+    def replicated(d: Deflation) -> Deflation:
+        return d if mesh is None else replicate_deflation(d, mesh)
     coarsest = nr_levels - 1
     device = op.device
 
@@ -438,16 +485,18 @@ def mlmc(
     hutch_defl = None
     with timer.phase("defl_setup"):
         if cfg.mlmc_fine_deflation and 0 not in exact_set:
-            hutch_defl = hutchinson_deflation(op, solver, cfg)
+            hutch_defl = replicated(hutchinson_deflation(op, solver, cfg,
+                                                         fine_solver=fine_solver))
         for i in range(nr_levels - 1):
             if (skip_level and i == 1) or i in exact_set:
                 defls.append(Deflation(U=None, tr1=0.0 + 0.0j))
             elif i == 0 and hutch_defl is not None:
-                defls.append(_fine_deflation_addback(op, solver, cfg, hutch_defl,
-                                                     skip_level, dense_invs))
+                defls.append(replicated(_fine_deflation_addback(
+                    op, solver, cfg, hutch_defl, skip_level, dense_invs, fine_solver)))
             else:
                 k = int(cfg.mlmc_deflat_vctrs[i]) if i < len(cfg.mlmc_deflat_vctrs) else 0
-                defls.append(mlmc_level_deflation(solver, i, k, cfg, skip_level))
+                defls.append(replicated(mlmc_level_deflation(solver, i, k, cfg,
+                                                             skip_level)))
 
     # ---- rough trace ----
     with timer.phase("rough_trace"):
@@ -459,12 +508,14 @@ def mlmc(
             rough_cfg = cfg
             if cfg.rough_deflat_vctrs is not None:
                 rough_cfg = cfg.replace(nr_deflat_vctrs=cfg.rough_deflat_vctrs)
-            rough_defl = hutchinson_deflation(op, solver, rough_cfg,
-                                              rounds=cfg.rough_defl_rounds)
+            rough_defl = replicated(hutchinson_deflation(
+                op, solver, rough_cfg, rounds=cfg.rough_defl_rounds,
+                fine_solver=fine_solver))
         rough_probes = make_probe_source(probe_source, cfg.rough_seed, device)
         Br = max(int(cfg.nr_rough_iters), int(cfg.probe_batch))
         X = rough_probes(0, Br, op.n, op.dtype)
-        es, _, stall = hutchinson_step_batch(op, solver, cfg, rough_defl, X)
+        es, _, stall = hutchinson_step_batch(op, solver, cfg, rough_defl, X, fine_solver,
+                                             mesh=mesh)
         n_rough = Br if cfg.rough_batch_full else int(cfg.nr_rough_iters)
         rough_trace = complex(np.mean(es[:n_rough])) + rough_defl.tr1
     check_stalled(int(np.sum(stall)), Br, cfg.max_stalled_frac, "mlmc rough trace")
@@ -475,6 +526,8 @@ def mlmc(
                for _ in range(nr_levels)]
     for i in range(nr_levels):
         solver.coarsest_lev_iters[i] = 0
+        if fine_solver is not None:
+            fine_solver.coarsest_lev_iters[i] = 0
 
     # ---- dense-exact difference levels (no variance; host float64) ----
     if exact_set:
@@ -493,7 +546,7 @@ def mlmc(
         results[j]["function_iters"] = int(state.iters.get(f"level{j}", 0))
 
     def save_level(i: int, moments: RunningMoments, next_start: int) -> None:
-        if state_ckpt is None:
+        if state_ckpt is None or not lead:
             return
         state.moments[f"level{i}"] = moments
         state.next_index[f"level{i}"] = next_start
@@ -505,7 +558,7 @@ def mlmc(
         with timer.phase("sampling"):
             _adaptive_sampling(solver, cfg, defls, rough_trace, results,
                                probe_source, skip_level, log, exact_set, dense_invs,
-                               state, save_level)
+                               state, save_level, fine_solver, mesh)
     elif cfg.mlmc_schedule != "sequential":
         raise ValueError(f"unknown mlmc_schedule {cfg.mlmc_schedule!r}")
     else:
@@ -520,7 +573,8 @@ def mlmc(
                 moments = _sequential_level(
                     solver, cfg, i, defls[i], level_trace_tol, results, probe_source,
                     skip_level, dense_invs.get(_coarse_level(i, skip_level)), log,
-                    state if state_ckpt else None, save_level)
+                    state if (state_ckpt or mesh is not None) else None, save_level,
+                    fine_solver, mesh)
                 results[i]["nr_ests"] += moments.count
                 results[i]["ests_avg"] = moments.mean + defls[i].tr1
                 results[i]["ests_dev"] = moments.std_dev
@@ -559,6 +613,9 @@ def mlmc(
         results[i]["level_complexity"] = results[i]["function_iters"] * flops_vcycle(
             nnz, solver.cfg.smooth_iters, i, i)
         results[i]["level_complexity"] += nnz[-1] * int(solver.coarsest_lev_iters[i])
+        if fine_solver is not None:
+            results[i]["level_complexity"] += nnz[-1] * int(
+                fine_solver.coarsest_lev_iters[i])
     n_c = float(hier.levels[-1].n)
     results[-1]["level_complexity"] = n_c ** 3 + results[-1]["function_iters"] * n_c ** 2
 
@@ -584,13 +641,14 @@ def mlmc(
 
 def _fine_deflation_addback(op, solver: MGSolver, cfg: TraceConfig,
                             hutch_defl: Deflation, skip_level: bool,
-                            dense_invs) -> Deflation:
+                            dense_invs, fine_solver=None) -> Deflation:
     """Level-0 deflation that reuses the Hutchinson gamma3 basis U, with the
     projected-out subspace added back exactly by one batch of basis-vector
     probes: tr(M_0 U U^H) = sum_i <U_i, M_0 U_i>, M_0 the level-0 difference
-    map. The fine solve takes the setup solver profile and float64 host-
-    residual refinement; the coarse term applies the dense inverse (safe for
-    low-mode right-hand sides) or solves."""
+    map. The fine solve takes the setup solver profile (or the
+    lattice-sharded ``fine_solver``) and float64 host-residual refinement;
+    the coarse term applies the dense inverse (safe for low-mode right-hand
+    sides) or solves."""
     hier = solver.hier
     coarsest = hier.nr_levels - 1
     rows = hutch_defl.U.T                                  # (k, n)
@@ -599,7 +657,7 @@ def _fine_deflation_addback(op, solver: MGSolver, cfg: TraceConfig,
     x1 = rows
     if cfg.use_permuted:
         x1 = bblock_apply(hier, 0, shift_rows_down(x1, hier.levels[0].perm_shift))
-    Z, stalled = solve_refined_host(solver.derived(cfg.defl_solver), op, x1,
+    Z, stalled = solve_refined_host(fine_solver or solver.derived(cfg.defl_solver), op, x1,
                                     cfg.function_tol, int(cfg.defl_refine_steps),
                                     int(cfg.probe_batch))
     check_stalled(int(np.sum(stalled)), k, cfg.max_stalled_frac,

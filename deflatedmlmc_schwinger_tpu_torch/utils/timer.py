@@ -1,7 +1,10 @@
 """Phase timing (counterpart of deflatedmlmc_schwinger_tpu/utils/timer.py):
 coarse host-visible phases (setup, deflation setup, rough trace, sampling)
 on the host clock, with ``torch.cuda.synchronize`` at each phase edge when
-a CUDA device is in use, so a phase's time includes its device work."""
+a CUDA device is in use, so a phase's time includes its device work. Beside
+each phase's seconds it keeps the seconds this process spent in the
+transport helper of parallel/distributed.py during the phase (0 without a
+process group)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ class PhaseTimer:
     def __init__(self, device: Optional[torch.device] = None):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.transport: Dict[str, float] = defaultdict(float)
         self.device = None if device is None else torch.device(device)
 
     def _sync(self) -> None:
@@ -25,11 +29,16 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, name: str):
+        # imported here: parallel/ imports the estimators, which import this
+        from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import transport_stats
+
         self._sync()
         t0 = time.perf_counter()
+        moved0 = transport_stats["seconds"]
         try:
             yield
         finally:
             self._sync()
             self.totals[name] += time.perf_counter() - t0
+            self.transport[name] += transport_stats["seconds"] - moved0
             self.counts[name] += 1

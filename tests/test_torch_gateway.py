@@ -139,13 +139,26 @@ def test_entries_and_rejections(monkeypatch):
         gateway.set_params("no-such-experiment")
     with pytest.raises(SystemExit):
         cli.main(["G999"])
-    with pytest.raises(NotImplementedError, match="parallel"):
-        gateway.G302(device="cpu", devices=4)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(["G302", "--device", "cpu", "--devices", "2"])
+    # devices > 1 outside a process group: the entry starts that many ranks
+    # itself and hands back rank 0's result
+    from deflatedmlmc_schwinger_tpu_torch.parallel import worker
+
+    started = {}
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(worker, "launch", lambda target, n, **kw: (
+        started.update(target=target, n=n, **kw) or [{"rank": 0}, {"rank": 1}]))
+    assert gateway.G302(device="cpu", devices=4) == {"rank": 0}
+    assert started["n"] == 4 and started["args"] == ("G302", "cpu")
+    assert started["target"].endswith("parallel.worker:run_entry")
+    cli.main(["G302", "--device", "cpu", "--devices", "2"])
+    assert started["n"] == 2 and started["device"] == "cpu"
+    # one rank cannot cut the lattice in two: the one-device path runs
     monkeypatch.setenv("DMLMC_X_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        gateway.G302(device="cpu")
+    seen = {}
+    monkeypatch.setattr(gateway, "EXAMPLE_001",
+                        lambda cfg, *, device: seen.update(cfg=cfg, device=device))
+    gateway.G302(device="cpu")
+    assert seen["cfg"] == gateway.set_params("schwinger512")
     with pytest.raises(SystemExit):
         cli.main(["G301", "--devices", "2"])
 
