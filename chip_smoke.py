@@ -5,23 +5,31 @@
 
 1. Builds the stencil kernels from deflatedmlmc_schwinger_tpu_torch/csrc
    with nvcc (sm_90a) and prints the build time.
-2. Holds each kernel (K1 stencil_matvec, K2 stencil_residual, K3
-   stencil_poly_smooth, the tiled kernel that takes several roots per
-   launch, with and without the residual) to its plain PyTorch version on
-   the card: at the G301 shapes (64 probes, 256^2, complex64) to 1e-5
-   relative, and on a small non-square complex128 lattice to 1e-12; then at
-   the G102 shapes (128 probes, 128^2, complex64, K3 with the depth-16
-   sampling and depth-4 setup roots) to 1e-5. Times each kernel and its
-   plain version with CUDA events, K3 also beside the earlier kernel with
-   one launch per root (stencil_poly_smooth_per_root), and K1 and K2 beside
-   the torch.sparse CSR call that computes each (A @ v, and addmm with
-   alpha = -1) on the same operator. Computes each kernel's
-   bound from the shapes: the larger of its bytes (each operand once) over
-   HBM_BYTES_PER_S and its flops over FP32_FLOPS_PER_S.
+2. Holds each kernel (K1 stencil_matvec and K2 stencil_residual, both the
+   row kernel; K3 stencil_poly_smooth, the tiled kernel that takes several
+   roots per launch, with and without the residual) to its plain PyTorch
+   version on the card: at the G301 shapes (64 probes, 256^2, complex64) to
+   1e-5 relative, and on a small non-square complex128 lattice to 1e-12;
+   then at the G102 shapes (128 probes, 128^2, complex64, K3 with the
+   depth-16 sampling and depth-4 setup roots) to 1e-5. Times each kernel
+   and its plain version with CUDA events, beside its yardstick in turns
+   (kernel, yardstick, yardstick, kernel): the per-site K1 and K2
+   (stencil_matvec_per_site, stencil_residual_per_site; the row kernel must
+   agree with them to 1e-6 relative in complex64) and the per-root K3
+   (stencil_poly_smooth_per_root); K1 and K2 also beside the torch.sparse
+   CSR call that computes each (A @ v, and addmm with alpha = -1) on the
+   same operator, and with their device time (a CUDA graph of REPS launches
+   replayed) and host time per call (no synchronise), for the row kernel
+   and the per-site one. Computes each kernel's bound from the shapes: the
+   larger of its bytes (each operand once) over HBM_BYTES_PER_S and its
+   flops over FP32_FLOPS_PER_S.
    Then holds the tiled K3 to its plain version on shapes that stress its
    windows: a lattice smaller than a window, one that no tile divides,
    batches that the probes of a pass do not divide, depths 1, 5, 7 and 16,
-   in complex64 (1e-5) and complex128 (1e-12).
+   in complex64 (1e-5) and complex128 (1e-12); and the row kernel of K1/K2
+   on the plans other than whole aligned rows: an odd-T complex64 lattice,
+   a misaligned contiguous view, a lattice of fewer rows than a tile's
+   halo, and column tiles (random seeded coefficients).
 3. Runs gateway.G301 (deflated Hutchinson, generated 256^2 lattice) on
    cuda:0 to its stopping rule, checks that every kernel was launched on
    that path, that no more probe rows stalled than the configuration
@@ -34,8 +42,10 @@
    and EXAMPLE_002 (the G202 path: deflated MG-MLMC, level 1 skipped, level
    2 dense-exact). Each path must launch every kernel, keep its stalled
    rows (deflation-correction solves included) within max_stalled_frac,
-   and have k finite deflation eigenvalues. On no path may the per-root
-   K3 be launched: K3's launches are launches of the tiled kernel.
+   and have k finite deflation eigenvalues. On no path, here or in phase
+   12's ranks, may a yardstick (per-root K3, per-site K1 or K2) be
+   launched: K3's launches are launches of the tiled kernel, K1's and
+   K2's of the row kernel.
 5. Computes the exact displaced trace tr(D^{-1} Pi^T) of the same operator
    in complex128 on the card (dense LU, column blocks) and checks that both
    estimates lie within 5 of their own reported standard errors of it.
@@ -43,7 +53,8 @@
    probes, 16^2, complex128, to 1e-12) and K1-K3 at the G302 shapes (16
    probes, 512^2, complex64, and 8 probes, the block that each of two
    sample ranks gives the replicated solver in phase 12), each with its
-   bound and, for K1 and K2, the torch.sparse call, as in phase 2.
+   bound and, for K1 and K2, the per-site kernels, the device and host
+   times and the torch.sparse call, as in phase 2.
 7. Runs the unchanged 16^2 profile (set_params("schwinger16") with
    function_tol 1e-12: complex128, GMRES smoother, k = 64) on a generated
    16^2 operator (SMALL_MATRIX at SMALL_MASS; schwinger16.mat is not in the
@@ -67,8 +78,9 @@
 12. Several ranks of torch.distributed on the one card (the gloo backend,
    staged through the host), started through parallel/worker.py after the
    kernels are built: K1 and K2 against their plain versions on the padded
-   local blocks of 2 and 4 x shards (8 and 16 probes), timed beside the
-   torch.sparse call on the same padded coefficients; the halo matvec on 2
+   local blocks of 2 and 4 x shards (8 and 16 probes), timed as in phase 2
+   beside the per-site kernels and the torch.sparse call on the same padded
+   coefficients; the halo matvec on 2
    and 4 x shards at 512^2 with 16 probes (kernel K1 on the padded block
    against its plain version and against single-device K1, 1e-5 relative);
    ShardedMGSolver.solve on a (2, 2) mesh at the G302 hierarchy against
@@ -82,7 +94,8 @@
    max_stalled_frac, K1 and K2 launched by rank 0 on the sharded path;
    prints walls, phase seconds and the transport share of sampling.
 13. Prints the card's name and power limit, a JSON line with the kernels'
-   numbers (launches per path), and as the last line
+   numbers (launches per path; for K1 and K2 per_site_kernel_ms, device_ms,
+   per_site_device_ms, host_us and per_site_host_us), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no result line.
@@ -106,6 +119,7 @@ SMALL_MASS = -0.29
 CHECKPOINT_MATRIX = "generated:64x64:beta=5.0:seed=8"
 TOL_C64 = 1e-5
 TOL_C128 = 1e-12
+TOL_PER_SITE_C64 = 1e-6     # the row kernel against the per-site one: fma contraction only
 REPS = 50
 # the operator of the 128^2 flagship paths (PERF.md, section 4: why this mass)
 FLAGSHIP_MATRIX = "generated:128x128:beta=5.0:seed=11"
@@ -128,6 +142,12 @@ FLOPS_K3_LAST_NO_D = 12 + 4
 STRESS_LATTICES = ("generated:24x40:beta=3.0:seed=5", "generated:20x52:beta=3.0:seed=6")
 STRESS_BATCHES = (3, 37)
 STRESS_DEPTHS = (1, 5, 7, 16)
+# (X, T, B, dtype, misaligned view): the row kernel's other copy paths
+ROW_PATHS = ((9, 13, 5, "complex64", False), (24, 40, 3, "complex64", True),
+             (2, 8, 3, "complex64", False), (1, 16, 2, "complex128", False),
+             (3, 2100, 3, "complex64", False), (3, 2100, 3, "complex128", False),
+             (128, 128, 128, "complex64", True))
+ROW_KERNELS = ("stencil_matvec", "stencil_residual")
 REPLACES = {
     "stencil_matvec": "deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:86",
     "stencil_residual": "deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:93",
@@ -162,6 +182,53 @@ def _time_ms(fn, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    work per call does not pace the loop. ``fn`` runs eagerly first, which
+    sets up what the capture must not do (builds, shared-memory limits)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (reps * replays)
+    del graph
+    return ms
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call over ``calls`` calls without a
+    synchronise (the launch path's own cost while the device keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def _randn(shape, dtype, gen, device):
     import torch
 
@@ -183,19 +250,21 @@ def _bound(n_blocks: int, flops_per_site_probe: int, B: int, nx: int, nt: int,
 
 
 def _cases(sk, roots_by_depth):
-    """(name, kernel, plain version, other, blocks moved, flops per site and
-    probe) for K1, K2 and K3 at each root depth, with and without the
-    residual. ``other`` is a second implementation timed beside the kernel:
-    the per-root kernel for K3, None else."""
+    """(name, kernel, plain version, yardstick, blocks moved, flops per site
+    and probe) for K1, K2 and K3 at each root depth, with and without the
+    residual. The yardstick is the earlier kernel timed beside this one:
+    the per-site kernel for K1 and K2, the per-root kernel for K3."""
     cases = [
         ("stencil_matvec",
          lambda C_, a, b, X, T: sk.stencil_matvec(C_, a, X, T),
          lambda C_, a, b, X, T: sk.stencil_matvec_plain(C_, a, X, T),
-         None, 2, FLOPS_D),
+         lambda C_, a, b, X, T: sk.stencil_matvec_per_site(C_, a, X, T),
+         2, FLOPS_D),
         ("stencil_residual",
          lambda C_, a, b, X, T: sk.stencil_residual(C_, a, b, X, T),
          lambda C_, a, b, X, T: sk.stencil_residual_plain(C_, a, b, X, T),
-         None, 3, FLOPS_K2),
+         lambda C_, a, b, X, T: sk.stencil_residual_per_site(C_, a, b, X, T),
+         3, FLOPS_K2),
     ]
     for depth, roots in roots_by_depth.items():
         cases += [
@@ -219,9 +288,12 @@ def _cases(sk, roots_by_depth):
 
 def _check(label, cases, C, v, w, nx, nt, small=None, tol=TOL_C64) -> dict:
     """Each case against its plain version (to ``tol``, relative; on
-    ``small`` = (C, v, w, nx, nt) in c128 to TOL_C128), timed with CUDA events.
+    ``small`` = (C, v, w, nx, nt) in c128 to TOL_C128), timed with CUDA events
+    beside its yardstick in turns (kernel, yardstick, yardstick, kernel);
+    K1 and K2 also by CUDA-graph replay (device ms) and per call on the host.
     Returns {case name: dict(max_abs_err, rel_err, ms, plain_ms, other_ms,
-    bound_ms, bound_by)}."""
+    bound_ms, bound_by, and for K1/K2 device_ms, other_device_ms, host_us,
+    other_host_us)}."""
     import torch
 
     out = {}
@@ -248,23 +320,41 @@ def _check(label, cases, C, v, w, nx, nt, small=None, tol=TOL_C64) -> dict:
             if not torch.isfinite(sgot).all() or err128 > TOL_C128:
                 raise RuntimeError(f"{label} {name}: c128 rel {err128:.3e} > {TOL_C128:g}")
             msg += f", c128 24x40 rel err {err128:.3e}"
-        other_ms = None
-        if other is not None:
-            oerr = _rel_err(_flat(other(C, v, w, nx, nt)), ref)
-            if oerr > tol:
-                raise RuntimeError(f"{label} {name}: the per-root kernel disagrees with "
-                                   f"the plain version (c64 rel {oerr:.3e})")
-            other_ms = _time_ms(lambda: other(C, v, w, nx, nt))
-        ms = _time_ms(lambda: kern(C, v, w, nx, nt))
+        oout = _flat(other(C, v, w, nx, nt))
+        oerr = _rel_err(oout, ref)
+        if oerr > tol:
+            raise RuntimeError(f"{label} {name}: the yardstick disagrees with "
+                               f"the plain version (rel {oerr:.3e})")
+        row = name in ROW_KERNELS
+        if row:
+            verr = _rel_err(got, oout)
+            if C.dtype == torch.complex64 and verr > TOL_PER_SITE_C64:
+                raise RuntimeError(f"{label} {name}: the row kernel differs from the "
+                                   f"per-site kernel by {verr:.3e} relative")
+            msg += f", vs per-site {verr:.3e}"
+        k_fn = lambda: kern(C, v, w, nx, nt)  # noqa: E731
+        o_fn = lambda: other(C, v, w, nx, nt)  # noqa: E731
+        turns = [_time_ms(f) for f in (k_fn, o_fn, o_fn, k_fn)]
+        ms, other_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         plain_ms = _time_ms(lambda: plain(C, v, w, nx, nt))
         bound_ms, bound_by = _bound(n_blocks, flops, B, nx, nt, C.element_size())
-        msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / ms:.1%} of bound")
-        if other_ms is not None:
-            msg += f", per-root kernel {other_ms:.4f} ms"
+        what = "per-site" if row else "per-root"
+        msg += (f"; kernel {turns[0]:.4f}/{turns[3]:.4f} ms, {what} kernel "
+                f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+        res = dict(max_abs_err=abs64, rel_err=err64, ms=ms, plain_ms=plain_ms,
+                   other_ms=other_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if row:
+            dturns = [_graph_ms(f) for f in (k_fn, o_fn, o_fn, k_fn)]
+            res.update(device_ms=(dturns[0] + dturns[3]) / 2,
+                       other_device_ms=(dturns[1] + dturns[2]) / 2,
+                       host_us=_host_us(k_fn), other_host_us=_host_us(o_fn))
+            msg += (f"; device (graph) {dturns[0]:.4f}/{dturns[3]:.4f} ms, per-site "
+                    f"{dturns[1]:.4f}/{dturns[2]:.4f} ms, "
+                    f"{bound_ms / res['device_ms']:.1%} of bound; host "
+                    f"{res['host_us']:.2f} us per call, per-site {res['other_host_us']:.2f} us")
         print(msg)
-        out[name] = dict(max_abs_err=abs64, rel_err=err64, ms=ms, plain_ms=plain_ms,
-                         other_ms=other_ms, bound_ms=bound_ms, bound_by=bound_by)
+        out[name] = res
     return out
 
 
@@ -361,6 +451,48 @@ def check_window_stress(device) -> int:
     return n
 
 
+def check_row_paths(device) -> int:
+    """K1 and K2 (the row kernel) against their plain versions on the plans
+    other than whole aligned rows (ROW_PATHS): per-element copies for odd T
+    in complex64 and for a contiguous view at an odd element offset, the
+    wrapped halo rows of a lattice of one or two rows, column tiles of a row
+    wider than a block. Random seeded (2, 2, 5, X, T) coefficients. Returns
+    the number of cases."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+
+    gen = torch.Generator(device=device).manual_seed(606)
+    n_cases, worst = 0, {}
+    for nx, nt, B, dtype_name, misaligned in ROW_PATHS:
+        dtype = getattr(torch, dtype_name)
+        tol = TOL_C64 if dtype == torch.complex64 else TOL_C128
+        n = 2 * nx * nt
+        C = _randn((2, 2, 5, nx, nt), dtype, gen, device)
+        if misaligned:
+            v = _randn((B * n + 1,), dtype, gen, device)[1:].view(B, n)
+            w = _randn((B * n + 1,), dtype, gen, device)[1:].view(B, n)
+            assert v.is_contiguous() and v.data_ptr() % 16
+        else:
+            v, w = (_randn((B, n), dtype, gen, device) for _ in range(2))
+        plan = sk.launch_plan(B, nx, nt, C.element_size(), 132, residual=False,
+                              aligned=not misaligned)
+        for got, ref in ((sk.stencil_matvec(C, v, nx, nt), sk.stencil_matvec_plain(C, v, nx, nt)),
+                         (sk.stencil_residual(C, w, v, nx, nt),
+                          sk.stencil_residual_plain(C, w, v, nx, nt))):
+            torch.cuda.synchronize()
+            err = _rel_err(got, ref)
+            worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
+            if not torch.isfinite(got).all() or err > tol:
+                raise RuntimeError(f"row kernel on {nx}x{nt} B={B} {dtype_name} misaligned="
+                                   f"{misaligned} (R={plan.rows}, W={plan.cols}, "
+                                   f"bulk={plan.bulk}): rel err {err:.3e} > {tol:g}")
+            n_cases += 1
+    print(f"[kernels row paths] K1/K2 on {[p[:4] + (('misaligned',) if p[4] else ()) for p in ROW_PATHS]}: "
+          f"{n_cases} cases, worst rel err " + ", ".join(f"{k} {e:.3e}" for k, e in worst.items()))
+    return n_cases
+
+
 def _roots(op, depth: int):
     from deflatedmlmc_schwinger_tpu_torch.io import csr_from_stencil
     from deflatedmlmc_schwinger_tpu_torch.mg.host_setup import _poly_roots_host
@@ -406,6 +538,7 @@ def check_kernels(device) -> dict:
         _add_library_ms(label, results[label], op.coeffs, v, w, op.nx, op.nt)
         del op, v, w
     check_window_stress(device)
+    check_row_paths(device)
     return results
 
 
@@ -427,11 +560,12 @@ def small_cfg():
                                              mass=SMALL_MASS)
 
 
-def _no_per_root_launch(label: str, sk) -> None:
-    """K3 on a path is the tiled kernel alone."""
-    n = sk.stencil_poly_smooth_per_root.launches
-    if n:
-        raise RuntimeError(f"{label} launched the per-root K3 {n} times")
+def _no_yardstick_launch(label: str, counts: dict) -> None:
+    """K1-K3 on a path are the row and tiled kernels alone: ``counts``
+    (stencil_kernels.yardstick_counts()) must be all 0."""
+    launched = {k: n for k, n in counts.items() if n}
+    if launched:
+        raise RuntimeError(f"{label} launched yardstick kernels {launched}")
 
 
 def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
@@ -471,7 +605,7 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
-    _no_per_root_launch(label, sk)
+    _no_yardstick_launch(label, sk.yardstick_counts())
     solved = result["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
     if result["stalled_rows"] > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {result['stalled_rows']} stalled rows of {solved}")
@@ -537,7 +671,7 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
     missing = [n for n in kernels_of_path if counts[n] <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
-    _no_per_root_launch(label, sk)
+    _no_yardstick_launch(label, sk.yardstick_counts())
     if stalled > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {stalled} stalled rows of {solved}")
     return result, counts, wall, stderr
@@ -731,6 +865,7 @@ def rank_halo(x_shards: int) -> dict:
     sk.reset_launch_counts()
     got = halo.halo_apply(sh, blk)
     launches = sk.launch_counts()["stencil_matvec"]
+    yardsticks = sk.yardstick_counts()
     plain = halo._halo_kernel(sh.coeffs, blk, *halo.halo_rows(sh, blk))
     whole = halo.gather_blocks(got, mesh)
     single = op.matvec(v)
@@ -741,7 +876,8 @@ def rank_halo(x_shards: int) -> dict:
         halo.halo_apply(sh, blk)
     torch.cuda.synchronize()
     return dict(rank=mesh.rank, vs_plain=_rel_err(got, plain), vs_single=_rel_err(whole, single),
-                vs_whole_plain=_rel_err(whole, whole_plain), launches=launches, finite=bool(torch.isfinite(whole).all()),
+                vs_whole_plain=_rel_err(whole, whole_plain), launches=launches,
+                yardsticks=yardsticks, finite=bool(torch.isfinite(whole).all()),
                 apply_ms=1e3 * (time.perf_counter() - t0) / 20,
                 local_shape=tuple(blk.shape))
 
@@ -778,6 +914,7 @@ def rank_sharded_solve(hier_path: str) -> dict:
     torch.cuda.synchronize()
     sharded_s = time.perf_counter() - t0
     counts, moved = sk.launch_counts(), dict(transport_stats)
+    yardsticks = sk.yardstick_counts()
     solver = MGSolver(hier, cfg.solver)
     solver.solve(b, cfg.function_tol)
     torch.cuda.synchronize()
@@ -786,7 +923,8 @@ def rank_sharded_solve(hier_path: str) -> dict:
     torch.cuda.synchronize()
     return dict(rank=mesh.rank, iters=res.iters.tolist(), ref_iters=ref.iters.tolist(),
                 dx=_rel_err(res.x, ref.x), relres=float((res.resnorm / res.bnorm).max()),
-                stalled=int(res.stalled.sum()), counts=counts, transport=moved,
+                stalled=int(res.stalled.sum()), counts=counts, yardsticks=yardsticks,
+                transport=moved,
                 sharded_s=sharded_s, replicated_s=time.perf_counter() - t0)
 
 
@@ -878,6 +1016,7 @@ def run_g302_ranks(label: str, devices: int, x_shards: int, cfg, reference) -> d
           f"of {cfg.probe_batch}, {moved['sampling'] / phases['sampling']:.1%} of it in "
           f"transport (waits for the other ranks included)")
     print(f"[{label}] rank 0 kernel launches {counts}")
+    _no_yardstick_launch(f"{label} rank 0", r["yardstick_launches"])
     if not r["ranks_agree"]:
         raise RuntimeError(f"{label}: the ranks returned different results")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, r["std_dev"])):
@@ -927,6 +1066,7 @@ def check_parallel(device) -> dict:
               f"{ranks[0]['apply_ms']:.3f} ms per apply with its ring exchange; "
               f"{time.perf_counter() - t0:.1f} s with the ranks' start")
         for r in ranks:
+            _no_yardstick_launch(f"halo x{k} rank {r['rank']}", r["yardsticks"])
             if not r["finite"] or r["launches"] != 1 or max(
                     r["vs_plain"], r["vs_single"], r["vs_whole_plain"]) > TOL_C64:
                 raise RuntimeError(f"halo matvec on {k} x shards, rank {r['rank']}: {r}")
@@ -952,6 +1092,7 @@ def check_parallel(device) -> dict:
           f"against {r0['replicated_s']:.3f} s replicated with 4 ranks taking turns on the "
           f"card; {solve_wall:.1f} s with the ranks' start")
     for r in ranks:
+        _no_yardstick_launch(f"sharded solve rank {r['rank']}", r["yardsticks"])
         if (r["iters"], r["dx"]) != (r0["iters"], r0["dx"]):
             raise RuntimeError("the ranks of the sharded solve hold different results")
         if max(abs(a - b) for a, b in zip(r["iters"], r["ref_iters"])) > 1:
@@ -1088,6 +1229,13 @@ def main() -> None:
             other_shapes={lbl: {k: res.get(k) for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for lbl, res in others.items()})
+        if name in ROW_KERNELS:
+            row_fields = dict(per_site_kernel_ms="other_ms", device_ms="device_ms",
+                              per_site_device_ms="other_device_ms", host_us="host_us",
+                              per_site_host_us="other_host_us")
+            entry.update({f: k102[src] for f, src in row_fields.items()})
+            for lbl, res in others.items():
+                entry["other_shapes"][lbl].update({f: res[src] for f, src in row_fields.items()})
         if name == "stencil_poly_smooth":
             # launches count the tiled kernel's launches, several roots each
             entry["per_root_kernel_ms"] = k102["other_ms"]

@@ -4,6 +4,9 @@
 // deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py:
 //   K1 stencil_matvec   <- _stencil_kernel  (y = D v)
 //   K2 stencil_residual <- _residual_kernel (r = b - D x, one pass)
+//      both by stencil_rows_kernel (row-staged tiles, below); the first
+//      kernels, one thread per site (stencil_*_per_site_kernel), are kept
+//      as the yardsticks the row kernel is timed against, on no path
 //   K3 poly_tiled       <- _poly_kernel     (up to kMaxFuse roots of
 //                                            x = p(D) r per launch)
 //      poly_step        the earlier K3, one launch per root; kept as the
@@ -22,13 +25,28 @@
 //
 // K1, K2: device-memory bandwidth. Per probe and site they move two or
 // three complex pairs and do 18 complex MACs, about 4.5 flop per byte in
-// complex64, far below the ridge. The design minimises bytes: one thread
-// owns one (x, t) site for both output spins, loads the site's 18
-// coefficients into registers once and reuses them for a chunk of probes
-// (blockIdx.y), so coefficient traffic is amortised over the chunk. Threads
-// of a warp own consecutive t, so every tap's load is coalesced; the
-// neighbour re-reads of a row hit L1/L2 instead of device memory.
-// Wrap-around is index arithmetic, so any X, T is accepted.
+// complex64, far below the ridge; the bound is (probe blocks moved x B + 18
+// coefficient fields) x sites x itemsize / 3.35 TB/s. So the design moves
+// each byte once and keeps copies in flight. stencil_rows_kernel: a block
+// owns a tile of R whole lattice rows (x0 .. x0+R-1, all T sites; a lattice
+// too wide for that is cut into column tiles of W sites) for a chunk of
+// probes. For each probe it stages the two spins' R + 2 rows (its own and
+// the periodic neighbours x0-1, x0+R) and, for K2, the R rows of b into a
+// ring of S shared-memory stages. A row of one spin and probe is T*itemsize
+// contiguous bytes, so where it is 16-byte aligned one elected thread
+// copies it whole with cp.async.bulk, completing on the stage's mbarrier
+// (armed with the stage's byte count); otherwise (odd T in complex64, a
+// misaligned view, column tiles) every thread copies 8 or 16 bytes at a
+// time with cp.async and arrives on the same mbarrier. The copies of probe
+// p + S run while the block computes probes p+1 .. p+S-1. t+-1 taps come
+// from the staged row (the wrap is index arithmetic there), x+-1 taps from
+// the halo rows, so device memory sees each v byte once per block, plus the
+// 2/R halo rows (mostly L2 hits). A thread owns fixed sites (two adjacent t
+// in complex64, so its stores are 16 bytes; one in complex128) and keeps
+// their 18 coefficients in registers for every probe of its chunk; the
+// chunking (ops/stencil_kernels.py launch_plan) fills the SMs with few
+// coefficient reloads. Products are fused multiply-adds (cfma) in the
+// per-site kernel's order (tap outer, input spin inner).
 //
 // K3: as a function (r in; x and cur out) it moves no more than K2, but it
 // applies D once per root, so from about six roots on its bound is the
@@ -61,6 +79,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
 #include <mutex>
 
 namespace {
@@ -151,10 +171,10 @@ __device__ __forceinline__ void apply_site(const V c[2][2][5],
   }
 }
 
-// K1: y = D v.
+// K1 per site (the yardstick): y = D v.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-stencil_matvec_kernel(const V* __restrict__ C, const V* __restrict__ v,
+stencil_matvec_per_site_kernel(const V* __restrict__ C, const V* __restrict__ v,
                       V* __restrict__ y, int B, int X, int T) {
   const long long XT = static_cast<long long>(X) * T;
   const long long site = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -174,10 +194,10 @@ stencil_matvec_kernel(const V* __restrict__ C, const V* __restrict__ v,
   }
 }
 
-// K2: r = b - D x.
+// K2 per site (the yardstick): r = b - D x.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-stencil_residual_kernel(const V* __restrict__ C, const V* __restrict__ b,
+stencil_residual_per_site_kernel(const V* __restrict__ C, const V* __restrict__ b,
                         const V* __restrict__ x, V* __restrict__ r, int B,
                         int X, int T) {
   const long long XT = static_cast<long long>(X) * T;
@@ -261,10 +281,10 @@ dim3 grid_for(int B, int X, int T) {
 bool empty(int B, int X, int T) { return B <= 0 || X <= 0 || T <= 0; }
 
 template <typename V>
-int launch_matvec(const void* C, const void* v, void* y, int B, int X, int T,
+int launch_matvec_per_site(const void* C, const void* v, void* y, int B, int X, int T,
                   void* stream) {
   if (empty(B, X, T)) return 0;
-  stencil_matvec_kernel<V><<<grid_for(B, X, T), kThreads, 0,
+  stencil_matvec_per_site_kernel<V><<<grid_for(B, X, T), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(C), static_cast<const V*>(v), static_cast<V*>(y),
       B, X, T);
@@ -272,10 +292,10 @@ int launch_matvec(const void* C, const void* v, void* y, int B, int X, int T,
 }
 
 template <typename V>
-int launch_residual(const void* C, const void* b, const void* x, void* r,
+int launch_residual_per_site(const void* C, const void* b, const void* x, void* r,
                     int B, int X, int T, void* stream) {
   if (empty(B, X, T)) return 0;
-  stencil_residual_kernel<V><<<grid_for(B, X, T), kThreads, 0,
+  stencil_residual_per_site_kernel<V><<<grid_for(B, X, T), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(C), static_cast<const V*>(b),
       static_cast<const V*>(x), static_cast<V*>(r), B, X, T);
@@ -633,30 +653,428 @@ int launch_poly_tiled(const void* C, const void* cur_in, void* x, void* cur_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K1/K2: row-staged tiles ---------------------------------------------
+//
+// The launch plan (rows R, columns W, probes per block, stages S, the copy
+// path and the shared-memory bytes) is chosen by ops/stencil_kernels.py
+// launch_plan and checked here: a plan this kernel cannot run is refused
+// with cudaErrorInvalidValue.
+
+constexpr int kRowsMaxThreads = 512;  // a thread owns one or two tile sites
+constexpr int kRowsMaxStages = 8;
+constexpr int kRowsBarBytes = kRowsMaxStages * 8;  // the stages' mbarriers
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+
+// Arrives on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// acc[a] = sum_{k, b} c[a][b][k] * w[b][k], tap k outer and input spin b
+// inner as apply_site sums them, with fused multiply-adds.
+template <typename V>
+__device__ __forceinline__ void apply_taps(const V c[2][2][5], const V w[2][5],
+                                           V out[2]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    V acc = czero<V>();
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        if (tap_used(a, b, k)) cfma(acc, c[a][b][k], w[b][k]);
+    out[a] = acc;
+  }
+}
+
+__device__ __forceinline__ float2 lo(float4 q) { return make_float2(q.x, q.y); }
+__device__ __forceinline__ float2 hi(float4 q) { return make_float2(q.z, q.w); }
+
+// K1 (y = D v) and, with kResidual, K2 (y = b - D v). One block: the tile of
+// R lattice rows from x0 and W columns from t0 (W = T: whole rows), for
+// probes [blockIdx.y * ppb, ...). A stage holds, per spin, the rows
+// x0 - 1 .. x0 + R (slot j: row x0 - 1 + j, wrapped) at a pitch of P
+// elements, then for K2 the R rows of b. With kBulk the rows are whole and
+// copied by cp.async.bulk, and the t+-1 taps wrap inside the row; otherwise
+// every thread copies elements with cp.async, and a row holds its W tile
+// columns and then the columns t0 - 1 and t0 + W (wrapped). Thread i owns
+// tile sites i * SPT .. i * SPT + SPT - 1 (row-major). A stage is refilled
+// after a barrier of the whole block (a producer warp that waits on "empty"
+// barriers instead measured slower at every shape that matters, PERF.md).
+template <typename V, bool kResidual, bool kBulk>
+__global__ void __launch_bounds__(kRowsMaxThreads, 1)
+stencil_rows_kernel(const V* __restrict__ C, const V* __restrict__ b,
+                    const V* __restrict__ v, V* __restrict__ y, int B, int X,
+                    int T, int R, int W, int ppb, int S, int P) {
+  constexpr int SPT = sizeof(V) == 8 ? 2 : 1;  // sites per thread
+  // complex64 whole rows: T is even, so a thread's two sites share a row and
+  // are read and written as one 16-byte access
+  constexpr bool kPairs = kBulk && SPT == 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  V* stage0 = reinterpret_cast<V*>(smem_raw + kRowsBarBytes);
+
+  const int tiles_t = (T + W - 1) / W;
+  const int x0 = (blockIdx.x / tiles_t) * R;
+  const int t0 = (blockIdx.x % tiles_t) * W;
+  const int rows = min(R, X - x0);
+  const int cols = min(W, T - t0);
+  const int slots = R + 2;
+  const int stage_elems = (2 * slots + (kResidual ? 2 * R : 0)) * P;
+  const long long XT = static_cast<long long>(X) * T;
+  const long long pstride = 2 * XT;  // elements per probe
+  const int p0 = blockIdx.y * ppb;
+  const int n = min(B - p0, ppb);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bars[s], kBulk ? 1 : nthr);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Stage probe i of this block into stage i % S.
+  auto fill = [&](int i, bool issuer) {
+    V* st = stage0 + (i % S) * stage_elems;
+    uint64_t* bar = &bars[i % S];
+    const V* vp = v + (p0 + i) * pstride;
+    const V* bp = kResidual ? b + (p0 + i) * pstride : nullptr;
+    if constexpr (kBulk) {
+      if (issuer) {
+        const unsigned row_bytes = static_cast<unsigned>(T) * sizeof(V);
+        mbar_expect_tx(bar, (2 * (rows + 2) + (kResidual ? 2 * rows : 0)) * row_bytes);
+        // the block's reads of this stage (generic proxy) come before the
+        // copies into it (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        // one copy per row: merging a spin's adjacent rows into one copy
+        // measured slower (PERF.md, bench_torch/k12_sweep.py)
+        for (int s = 0; s < 2; ++s)
+          for (int j = 0; j < rows + 2; ++j)
+            bulk_copy(st + (s * slots + j) * P,
+                      vp + s * XT + static_cast<long long>(wrap(x0 - 1 + j, X)) * T,
+                      row_bytes, bar);
+        if (kResidual)
+          for (int s = 0; s < 2; ++s)
+            for (int r = 0; r < rows; ++r)
+              bulk_copy(st + (2 * slots + s * R + r) * P,
+                        bp + s * XT + static_cast<long long>(x0 + r) * T, row_bytes, bar);
+      }
+    } else {
+      const int wv = cols + 2;
+      const int tl = wrap(t0 - 1, T), tr = wrap(t0 + cols, T);
+      for (int e = tid; e < 2 * (rows + 2) * wv; e += nthr) {
+        const int c = e % wv;
+        const int sj = e / wv;
+        const int j = sj % (rows + 2), s = sj / (rows + 2);
+        const int t = c < cols ? t0 + c : (c == cols ? tl : tr);
+        cp_async<sizeof(V)>(st + (s * slots + j) * P + c,
+                            vp + s * XT + static_cast<long long>(wrap(x0 - 1 + j, X)) * T + t);
+      }
+      if (kResidual)
+        for (int e = tid; e < 2 * rows * cols; e += nthr) {
+          const int c = e % cols;
+          const int sr = e / cols;
+          const int r = sr % rows, s = sr / rows;
+          cp_async<sizeof(V)>(st + (2 * slots + s * R + r) * P + c,
+                              bp + s * XT + static_cast<long long>(x0 + r) * T + t0 + c);
+        }
+      cp_async_arrive(bar);
+    }
+  };
+
+  for (int i = 0; i < min(S, n); ++i) fill(i, tid == 0);
+
+  // This thread's sites and their coefficients, loaded while the first
+  // stages are in flight and kept for every probe of the chunk.
+  V c[SPT][2][2][5];
+  int srow[SPT], scol[SPT], lft[SPT], rgt[SPT];
+  bool own[SPT];
+#pragma unroll
+  for (int q = 0; q < SPT; ++q) {
+    const int f = tid * SPT + q;
+    srow[q] = f / W;
+    scol[q] = f - srow[q] * W;
+    own[q] = srow[q] < rows && scol[q] < cols;
+    lft[q] = scol[q] > 0 ? scol[q] - 1 : (kBulk ? T - 1 : cols);
+    rgt[q] = scol[q] < cols - 1 ? scol[q] + 1 : (kBulk ? 0 : cols + 1);
+    const long long site = static_cast<long long>(x0 + srow[q]) * T + t0 + scol[q];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb)
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+          c[q][a][bb][k] = (own[q] && tap_used(a, bb, k))
+                               ? C[((a * 2 + bb) * 5 + k) * XT + site]
+                               : czero<V>();
+  }
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S;
+    mbar_wait(&bars[s], (i / S) & 1);
+    const V* st = stage0 + s * stage_elems;
+    V* yp = y + (p0 + i) * pstride;
+    if constexpr (kPairs) {
+      if (own[0]) {
+        const int r = srow[0], c0 = scol[0];
+        V w0[2][5], w1[2][5];  // the taps of sites c0 and c0 + 1
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const V* row = st + (bb * slots + r + 1) * P;
+          const float4 mid = *reinterpret_cast<const float4*>(row + c0);
+          const float4 up = *reinterpret_cast<const float4*>(row + P + c0);
+          const float4 dn = *reinterpret_cast<const float4*>(row - P + c0);
+          w0[bb][0] = lo(mid); w1[bb][0] = hi(mid);
+          w0[bb][1] = hi(mid); w1[bb][1] = row[rgt[1]];
+          w0[bb][2] = row[lft[0]]; w1[bb][2] = lo(mid);
+          w0[bb][3] = lo(up); w1[bb][3] = hi(up);
+          w0[bb][4] = lo(dn); w1[bb][4] = hi(dn);
+        }
+        V o0[2], o1[2];
+        apply_taps(c[0], w0, o0);
+        apply_taps(c[1], w1, o1);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          float4 out = make_float4(o0[a].x, o0[a].y, o1[a].x, o1[a].y);
+          if (kResidual) {
+            const float4 bv = *reinterpret_cast<const float4*>(
+                st + (2 * slots + a * R + r) * P + c0);
+            out = make_float4(bv.x - out.x, bv.y - out.y, bv.z - out.z, bv.w - out.w);
+          }
+          *reinterpret_cast<float4*>(yp + a * XT + static_cast<long long>(x0 + r) * T + c0) = out;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q) {
+        if (!own[q]) continue;
+        const int r = srow[q], cq = scol[q];
+        V w[2][5];
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const V* row = st + (bb * slots + r + 1) * P;
+          w[bb][0] = row[cq];
+          w[bb][1] = row[rgt[q]];
+          w[bb][2] = row[lft[q]];
+          w[bb][3] = row[P + cq];
+          w[bb][4] = row[cq - P];
+        }
+        V o[2];
+        apply_taps(c[q], w, o);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          if (kResidual) {
+            const V bv = st[(2 * slots + a * R + r) * P + cq];
+            o[a].x = bv.x - o[a].x;
+            o[a].y = bv.y - o[a].y;
+          }
+          yp[a * XT + static_cast<long long>(x0 + r) * T + t0 + cq] = o[a];
+        }
+      }
+    }
+    if (i + S < n) {
+      __syncthreads();  // every thread is done with stage s
+      fill(i + S, tid == 0);
+    }
+  }
+}
+
+// Switches to device `dev` for a launch when it is not the current one, and
+// back afterwards.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t enter(int dev) {
+    int cur = 0;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err != cudaSuccess || cur == dev) return err;
+    err = cudaSetDevice(dev);
+    if (err == cudaSuccess) prev = cur;
+    return err;
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+template <typename V, bool kResidual, bool kBulk>
+int launch_rows_t(const V* C, const V* b, const V* v, V* y, int B, int X,
+                  int T, int R, int W, int ppb, int S, int P, int threads,
+                  int smem, int dev, cudaStream_t stream) {
+  auto kernel = stencil_rows_kernel<V, kResidual, kBulk>;
+  // The shared-memory limit is raised at this kernel's first launch on a
+  // device, which precedes any CUDA-graph capture of it.
+  static std::atomic<bool> ready[kMaxDevices];
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    static std::mutex mu;
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev].load(std::memory_order_relaxed)) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready[dev].store(true, std::memory_order_release);
+    }
+  }
+  const dim3 grid(static_cast<unsigned>(((X + R - 1) / R) * ((T + W - 1) / W)),
+                  static_cast<unsigned>((B + ppb - 1) / ppb));
+  kernel<<<grid, threads, smem, stream>>>(C, b, v, y, B, X, T, R, W, ppb, S, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, bool kResidual>
+int launch_rows(const void* C, const void* b, const void* v, void* y,
+                const int* plan, void* stream) {
+  const int B = plan[0], X = plan[1], T = plan[2], R = plan[3], W = plan[4],
+            ppb = plan[5], S = plan[6], bulk = plan[7], smem = plan[8], dev = plan[9];
+  if (empty(B, X, T)) return 0;
+  constexpr int SPT = sizeof(V) == 8 ? 2 : 1;
+  constexpr int kAlign = 16 / static_cast<int>(sizeof(V));  // elements per 16 bytes
+  const int P = bulk ? T : (W + 2 + kAlign - 1) / kAlign * kAlign;
+  const long long threads = (static_cast<long long>(R) * W + SPT - 1) / SPT;
+  const long long stage =
+      (2LL * (R + 2) + (kResidual ? 2LL * R : 0)) * P * static_cast<long long>(sizeof(V));
+  const bool any_misaligned =
+      misaligned16(v) || misaligned16(y) || (kResidual && misaligned16(b));
+  bool ok = R >= 1 && R <= X && W >= 1 && W <= T && ppb >= 1 && S >= 1 &&
+            S <= kRowsMaxStages && threads <= kRowsMaxThreads &&
+            kRowsBarBytes + S * stage == smem && smem <= kMaxSmem && dev >= 0 &&
+            dev < kMaxDevices && (B + ppb - 1) / ppb <= 65535;
+  if (bulk) ok = ok && W == T && (T * sizeof(V)) % 16 == 0 && !any_misaligned;
+  // complex128 elements are copied 16 bytes at a time on either path
+  if (sizeof(V) == 16) ok = ok && !any_misaligned;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceScope scope;
+  const cudaError_t err = scope.enter(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const V* Cv = static_cast<const V*>(C);
+  const V* bv = static_cast<const V*>(b);
+  const V* vv = static_cast<const V*>(v);
+  V* yv = static_cast<V*>(y);
+  const int nthr = static_cast<int>(threads);
+  return bulk ? launch_rows_t<V, kResidual, true>(Cv, bv, vv, yv, B, X, T, R, W, ppb, S,
+                                                  P, nthr, smem, dev, s)
+              : launch_rows_t<V, kResidual, false>(Cv, bv, vv, yv, B, X, T, R, W, ppb, S,
+                                                   P, nthr, smem, dev, s);
+}
+
+// The per-site yardsticks launched on device `dev`.
+template <typename V>
+int launch_matvec_per_site_on(const void* C, const void* v, void* y, int B, int X,
+                              int T, int dev, void* stream) {
+  DeviceScope scope;
+  const cudaError_t err = scope.enter(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_matvec_per_site<V>(C, v, y, B, X, T, stream);
+}
+
+template <typename V>
+int launch_residual_per_site_on(const void* C, const void* b, const void* x, void* r,
+                                int B, int X, int T, int dev, void* stream) {
+  DeviceScope scope;
+  const cudaError_t err = scope.enter(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_residual_per_site<V>(C, b, x, r, B, X, T, stream);
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Every entry returns
 // cudaGetLastError() after its launch (0 = success).
 extern "C" {
 
-int dmlmc_stencil_matvec_c64(const void* C, const void* v, void* y, int B,
-                             int X, int T, void* stream) {
-  return launch_matvec<float2>(C, v, y, B, X, T, stream);
+// K1 and K2 by the row kernel. `plan` is a host array of ten ints (see
+// ops/stencil_kernels.py RowsPlan.c_array): B, X, T, rows, cols, probes
+// per block, stages, bulk (0/1), dynamic shared-memory bytes, and the
+// device of the operands.
+int dmlmc_stencil_matvec_c64(const void* C, const void* v, void* y,
+                             const int* plan, void* stream) {
+  return launch_rows<float2, false>(C, nullptr, v, y, plan, stream);
 }
 
-int dmlmc_stencil_matvec_c128(const void* C, const void* v, void* y, int B,
-                              int X, int T, void* stream) {
-  return launch_matvec<double2>(C, v, y, B, X, T, stream);
+int dmlmc_stencil_matvec_c128(const void* C, const void* v, void* y,
+                              const int* plan, void* stream) {
+  return launch_rows<double2, false>(C, nullptr, v, y, plan, stream);
 }
 
 int dmlmc_stencil_residual_c64(const void* C, const void* b, const void* x,
-                               void* r, int B, int X, int T, void* stream) {
-  return launch_residual<float2>(C, b, x, r, B, X, T, stream);
+                               void* r, const int* plan, void* stream) {
+  return launch_rows<float2, true>(C, b, x, r, plan, stream);
 }
 
 int dmlmc_stencil_residual_c128(const void* C, const void* b, const void* x,
-                                void* r, int B, int X, int T, void* stream) {
-  return launch_residual<double2>(C, b, x, r, B, X, T, stream);
+                                void* r, const int* plan, void* stream) {
+  return launch_rows<double2, true>(C, b, x, r, plan, stream);
+}
+
+// The per-site K1 and K2 (yardsticks, on no path).
+int dmlmc_stencil_matvec_per_site_c64(const void* C, const void* v, void* y,
+                                      int B, int X, int T, int dev,
+                                      void* stream) {
+  return launch_matvec_per_site_on<float2>(C, v, y, B, X, T, dev, stream);
+}
+
+int dmlmc_stencil_matvec_per_site_c128(const void* C, const void* v, void* y,
+                                       int B, int X, int T, int dev,
+                                       void* stream) {
+  return launch_matvec_per_site_on<double2>(C, v, y, B, X, T, dev, stream);
+}
+
+int dmlmc_stencil_residual_per_site_c64(const void* C, const void* b,
+                                        const void* x, void* r, int B, int X,
+                                        int T, int dev, void* stream) {
+  return launch_residual_per_site_on<float2>(C, b, x, r, B, X, T, dev, stream);
+}
+
+int dmlmc_stencil_residual_per_site_c128(const void* C, const void* b,
+                                         const void* x, void* r, int B, int X,
+                                         int T, int dev, void* stream) {
+  return launch_residual_per_site_on<double2>(C, b, x, r, B, X, T, dev, stream);
 }
 
 int dmlmc_stencil_poly_step_c64(const void* C, const void* cur, void* x,

@@ -5,6 +5,14 @@ Counterpart of ``deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py``:
 
   * K1 ``stencil_matvec``      y = D v
   * K2 ``stencil_residual``    r = b - D x, one pass
+    Both launch the row kernel: a block stages whole lattice rows of a
+    chunk of probes in shared memory and keeps its sites' coefficients in
+    registers over the chunk, with the tiling, chunking and copy path that
+    ``launch_plan`` picks per shape. ``stencil_rows_plain`` replays that
+    algorithm in plain PyTorch for the CPU tests.
+    ``stencil_matvec_per_site`` and ``stencil_residual_per_site`` are the
+    first kernels, one thread per site, kept as the yardsticks the row
+    kernel is timed against; neither is on any path.
   * K3 ``stencil_poly_smooth`` x = p(D) r through the residual recurrence
     step_k = cur_k / theta_k, x += step_k, cur_{k+1} = cur_k - D step_k.
     On the card this is the tiled kernel: a launch takes up to
@@ -36,7 +44,7 @@ import tempfile
 import threading
 from pathlib import Path
 from types import MappingProxyType
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,8 +67,23 @@ MAX_FUSE = 4                     # kMaxFuse in csrc/stencil.cu
 WINDOW = MappingProxyType({torch.complex64: (32, 32), torch.complex128: (16, 32)})
 FUSE_DEPTH = MappingProxyType({torch.complex64: 4, torch.complex128: 2})
 
+# The row kernel of K1/K2 (csrc/stencil.cu stencil_rows_kernel): limits
+# fixed in the source, and what launch_plan aims at (bench_torch/k12_sweep.py
+# and PERF.md give the measurements behind these choices).
+ROWS_MAX_THREADS = 512           # kRowsMaxThreads
+ROWS_MAX_STAGES = 8              # kRowsMaxStages
+ROWS_BAR_BYTES = 64              # kRowsBarBytes: the stages' mbarriers
+MAX_SMEM = 232448                # kMaxSmem: dynamic shared memory of a block
+SM_SMEM = 233472                 # shared memory of one SM
+SM_REGS = 65536                  # registers of one SM
+SM_MAX_BLOCKS = 32               # resident blocks of one SM
+ROWS_REGS = 128                  # registers per thread (ptxas: 111-128)
+ROWS_THREADS = 128               # threads a tile aims at
+ROWS_STAGES = 3                  # probes staged ahead, where shared memory allows
+
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_fns: dict = {}                  # (wrapper name, dtype suffix) -> ctypes function
 
 
 # ---- plain PyTorch versions --------------------------------------------------
@@ -106,6 +129,130 @@ def stencil_poly_smooth_plain(coeffs: torch.Tensor, r: torch.Tensor,
             break
         cur = cur - stencil_matvec_plain(coeffs, step, nx, nt)
     return x, (cur if with_residual else None)
+
+
+class RowsPlan(NamedTuple):
+    """How the row kernel runs K1/K2 at one shape (``launch_plan``)."""
+    rows: int            # R: lattice rows of a tile
+    cols: int            # W: columns of a tile (T: whole rows)
+    probes_per_block: int
+    stages: int          # probes staged ahead in shared memory
+    bulk: bool           # whole rows by cp.async.bulk; else cp.async per element
+    smem: int            # dynamic shared-memory bytes of a block
+    threads: int
+    tiles: int
+    chunks: int
+
+    def c_array(self, B: int, nx: int, nt: int, dev: int) -> ctypes.Array:
+        """The launch as the C entry takes it: B, X, T, the plan, device."""
+        return (ctypes.c_int * 10)(B, nx, nt, self.rows, self.cols, self.probes_per_block,
+                                   self.stages, int(self.bulk), self.smem, dev)
+
+
+def launch_plan(B: int, nx: int, nt: int, itemsize: int, sms: int, *,
+                residual: bool, aligned: bool = True, rows: Optional[int] = None,
+                probes_per_block: Optional[int] = None,
+                stages: Optional[int] = None) -> RowsPlan:
+    """The row kernel's plan for B probes on an nx x nt lattice with
+    ``itemsize``-byte complex elements on a card with ``sms`` SMs.
+    ``aligned``: the vectors' addresses are 16-byte aligned. ``rows``,
+    ``probes_per_block`` and ``stages`` override the choice (k12_sweep).
+
+    A thread owns two adjacent sites in complex64 and one in complex128.
+    A tile is R whole rows, R chosen for about ROWS_THREADS threads, and
+    smaller where that leaves fewer blocks than SMs even with one probe
+    each; a row too wide for ROWS_MAX_THREADS threads is cut into column
+    tiles. Rows are copied whole (bulk) when they are whole, their byte
+    length is a multiple of 16 and the vectors are aligned. ``occupancy``,
+    the blocks an SM holds by their registers, sets the rest: the probes
+    are cut into chunks so that the grid is about one such wave (fewer
+    chunks reload the coefficients less often, more fill the card), and up
+    to ROWS_STAGES probes of a chunk are staged ahead, as many as leave an
+    SM's shared memory to that many blocks."""
+    if min(B, nx, nt) < 1:
+        raise ValueError(f"no launch plan for B={B} on {nx} x {nt}")
+    spt = 2 if itemsize == 8 else 1
+    cols = min(nt, ROWS_MAX_THREADS * spt)
+    bulk = aligned and cols == nt and (nt * itemsize) % 16 == 0
+    tiles_t = -(-nt // cols)
+    if rows is None:
+        rows = max(1, min(nx, ROWS_THREADS * spt // cols))
+        while rows > 1 and -(-nx // rows) * tiles_t * B < sms:
+            rows //= 2
+    threads = -(-rows * cols // spt)
+    occupancy = max(1, min(SM_MAX_BLOCKS, SM_REGS // (threads * ROWS_REGS)))
+    align = 16 // itemsize
+    pitch = nt if bulk else -(-(cols + 2) // align) * align
+    stage_bytes = (2 * (rows + 2) + (2 * rows if residual else 0)) * pitch * itemsize
+    tiles = -(-nx // rows) * tiles_t
+    if probes_per_block is None:
+        chunks = min(B, max(1, round(occupancy * sms / tiles)))
+        probes_per_block = -(-B // chunks)
+    chunks = -(-B // probes_per_block)
+    if stages is None:
+        budget = min(MAX_SMEM, SM_SMEM // occupancy - 1024) - ROWS_BAR_BYTES
+        stages = max(1, min(ROWS_STAGES, probes_per_block, budget // stage_bytes))
+    smem = ROWS_BAR_BYTES + stages * stage_bytes
+    if (threads > ROWS_MAX_THREADS or smem > MAX_SMEM or rows > nx
+            or not 1 <= stages <= ROWS_MAX_STAGES or chunks > 65535):
+        raise ValueError(f"the row kernel cannot run R={rows}, W={cols}, "
+                         f"{stages} stages ({smem} B) for B={B} on {nx} x {nt}")
+    return RowsPlan(rows, cols, probes_per_block, stages, bulk, smem, threads,
+                    tiles, chunks)
+
+
+def stencil_rows_plain(coeffs: torch.Tensor, v: torch.Tensor, nx: int, nt: int,
+                       b: Optional[torch.Tensor] = None, *,
+                       plan: RowsPlan) -> torch.Tensor:
+    """The row kernel's algorithm in plain PyTorch (used by the tests
+    only): D v, or b - D v when ``b`` is given, block by block of ``plan``.
+    A block stages the rows x0-1 .. x0+R of its chunk of probes (wrapped;
+    a lattice of fewer rows repeats in them), with whole rows wrapping t+-1
+    inside the row on the bulk path and a tile's columns plus the two
+    neighbouring columns otherwise, then sums the taps in the kernel's
+    order. Every site must be written by exactly one block."""
+    g = v.reshape(-1, 2, nx, nt)
+    gb = None if b is None else b.reshape(-1, 2, nx, nt)
+    B = g.shape[0]
+    out = torch.full_like(g, complex(float("nan"), float("nan")))
+    hits = torch.zeros((nx, nt), dtype=torch.int64)
+    R, W = plan.rows, plan.cols
+    for p0 in range(0, B, plan.probes_per_block):
+        pr = slice(p0, min(B, p0 + plan.probes_per_block))
+        for x0 in range(0, nx, R):
+            rows = min(R, nx - x0)
+            slot_rows = [(x0 - 1 + j) % nx for j in range(rows + 2)]
+            for t0 in range(0, nt, W):
+                cols = min(W, nt - t0)
+                c = torch.arange(cols)
+                if plan.bulk:
+                    colidx = torch.arange(nt)
+                    left, right = (c - 1) % nt, (c + 1) % nt
+                else:
+                    colidx = torch.cat([t0 + c, torch.tensor([(t0 - 1) % nt,
+                                                              (t0 + cols) % nt])])
+                    left = torch.where(c > 0, c - 1, cols)
+                    right = torch.where(c < cols - 1, c + 1, cols + 1)
+                st = g[pr][:, :, slot_rows][:, :, :, colidx]
+                mid = st[:, :, 1:rows + 1]
+                taps = (mid[..., :cols], mid[..., right], mid[..., left],
+                        st[:, :, 2:rows + 2, :cols], st[:, :, 0:rows, :cols])
+                cw = coeffs[:, :, :, x0:x0 + rows, t0:t0 + cols]
+                for a in range(2):
+                    acc = torch.zeros_like(taps[0][:, 0])
+                    for k in range(5):
+                        for bb in range(2):
+                            if a != bb and k == 0:
+                                continue
+                            acc = acc + cw[a, bb, k] * taps[k][:, bb]
+                    if gb is not None:
+                        acc = gb[pr, a, x0:x0 + rows, t0:t0 + cols] - acc
+                    out[pr, a, x0:x0 + rows, t0:t0 + cols] = acc
+                if p0 == 0:
+                    hits[x0:x0 + rows, t0:t0 + cols] += 1
+    if not bool((hits == 1).all()):
+        raise AssertionError("the plan's tiles do not cover every site once")
+    return out.reshape(v.shape)
 
 
 def fused_passes(m: int, depth: int):
@@ -247,20 +394,29 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build()))
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             for sfx in _SUFFIX.values():
-                fns = {
-                    f"dmlmc_stencil_matvec_{sfx}": [P, P, P, I, I, I, P],
-                    f"dmlmc_stencil_residual_{sfx}": [P, P, P, P, I, I, I, P],
-                    f"dmlmc_stencil_poly_step_{sfx}":
-                        [P, P, P, P, D, D, I, I, I, I, I, P],
-                    f"dmlmc_stencil_poly_tiled_{sfx}":
-                        [P, P, P, P, P, I, I, I, I, I, I, P],
+                fns = {   # the row kernel: pointers, RowsPlan.c_array, stream
+                    "stencil_matvec": ("matvec", [P, P, P, P, P]),
+                    "stencil_residual": ("residual", [P, P, P, P, P, P]),
+                    "stencil_matvec_per_site": ("matvec_per_site", [P, P, P, I, I, I, I, P]),
+                    "stencil_residual_per_site":
+                        ("residual_per_site", [P, P, P, P, I, I, I, I, P]),
+                    "stencil_poly_step": ("poly_step", [P, P, P, P, D, D, I, I, I, I, I, P]),
+                    "stencil_poly_tiled": ("poly_tiled", [P, P, P, P, P, I, I, I, I, I, I, P]),
                 }
-                for name, argtypes in fns.items():
-                    fn = getattr(lib, name)
+                for key, (entry, argtypes) in fns.items():
+                    fn = getattr(lib, f"dmlmc_stencil_{entry}_{sfx}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+                    _fns[(key, sfx)] = fn
             _lib = lib
         return _lib
+
+
+def _fn(name: str, sfx: str):
+    """The library's entry for wrapper ``name`` and dtype suffix ``sfx``."""
+    if not _fns:
+        load_library()
+    return _fns[(name, sfx)]
 
 
 def _check(err: int, name: str) -> None:
@@ -268,36 +424,63 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _raw_stream(dev: int) -> int:
+    """The current stream of device ``dev`` (the capture stream under CUDA
+    graph capture) as an integer, by PyTorch's own cheapest query."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_operands(coeffs: torch.Tensor, nx: int, nt: int,
-                    *vecs: torch.Tensor) -> int:
-    """Validate the operands of a CUDA launch; returns the batch size B."""
+# Coefficient tensors already validated: id -> (what the validation saw, the
+# result). A new tensor at a reused id or address differs in some field of
+# the key and is validated anew.
+_coeff_cache: dict = {}
+_COEFF_CACHE_MAX = 256
+
+
+def _coeff_entry(coeffs: torch.Tensor, nx: int, nt: int):
+    """Validate a coefficient tensor (once per tensor and lattice); returns
+    ((dtype suffix, itemsize), its device)."""
+    device = coeffs.device
+    key = (coeffs.data_ptr(), coeffs.shape, coeffs.stride(), coeffs.dtype, device, nx, nt)
+    hit = _coeff_cache.get(id(coeffs))
+    if hit is not None and hit[0] == key:
+        return hit[1], device
     if coeffs.dtype not in _SUFFIX:
         raise TypeError(f"stencil kernels take complex64/complex128, got {coeffs.dtype}")
     if tuple(coeffs.shape) != (2, 2, 5, nx, nt):
         raise ValueError(f"coefficients must be (2, 2, 5, {nx}, {nt}), "
                          f"got {tuple(coeffs.shape)}")
-    n = 2 * nx * nt
-    for t in (coeffs,) + vecs:
-        if t.device != coeffs.device:
+    if not coeffs.is_contiguous():
+        raise ValueError("stencil operands must be contiguous")
+    entry = (_SUFFIX[coeffs.dtype], coeffs.element_size())
+    if len(_coeff_cache) >= _COEFF_CACHE_MAX:
+        _coeff_cache.clear()
+    _coeff_cache[id(coeffs)] = (key, entry)
+    return entry, device
+
+
+def _check_operands(coeffs: torch.Tensor, nx: int, nt: int,
+                    *vecs: torch.Tensor) -> Tuple[str, int, int]:
+    """Validate the operands of a launch (any device: the tests call it on
+    CPU and meta tensors); returns (dtype suffix, itemsize, batch size B)."""
+    (sfx, itemsize), device = _coeff_entry(coeffs, nx, nt)
+    v0 = vecs[0]
+    for t in vecs:
+        if t.device != device:
             raise ValueError("stencil operands must share one CUDA device")
         if t.dtype != coeffs.dtype:
             raise TypeError(f"dtype mismatch: {t.dtype} vs {coeffs.dtype}")
         if not t.is_contiguous():
             raise ValueError("stencil operands must be contiguous")
-    shape = vecs[0].shape
-    for t in vecs:
-        if t.shape != shape:
-            raise ValueError(f"shape mismatch: {tuple(t.shape)} vs {tuple(shape)}")
-    if not shape or shape[-1] != n:
-        raise ValueError(f"vectors must be (..., {n}), got {tuple(shape)}")
-    B = 1
-    for s in shape[:-1]:
-        B *= int(s)
-    return B
+        if t.shape != v0.shape:
+            raise ValueError(f"shape mismatch: {tuple(t.shape)} vs {tuple(v0.shape)}")
+    n = 2 * nx * nt
+    if v0.dim() == 0 or v0.shape[-1] != n:
+        raise ValueError(f"vectors must be (..., {n}), got {tuple(v0.shape)}")
+    return sfx, itemsize, v0.numel() // n
 
 
 def _dispatch(t: torch.Tensor) -> bool:
@@ -309,37 +492,96 @@ def _dispatch(t: torch.Tensor) -> bool:
     raise RuntimeError(f"no stencil kernel for device {t.device}")
 
 
+# (residual, B, X, T, itemsize, aligned, device) -> the plan's C array
+_plans: dict = {}
+_sms: dict = {}                  # device index -> SM count
+
+
+def _plan_for(residual: bool, B: int, nx: int, nt: int, itemsize: int,
+              aligned: bool, dev: int) -> ctypes.Array:
+    key = (residual, B, nx, nt, itemsize, aligned, dev)
+    arr = _plans.get(key)
+    if arr is None:
+        sms = _sms.get(dev)
+        if sms is None:
+            sms = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = launch_plan(B, nx, nt, itemsize, sms, residual=residual, aligned=aligned)
+        arr = _plans[key] = plan.c_array(B, nx, nt, dev)
+    return arr
+
+
+def _launch_rows(name: str, sfx: str, itemsize: int, coeffs: torch.Tensor,
+                 b: Optional[torch.Tensor], v: torch.Tensor, out: torch.Tensor,
+                 B: int, nx: int, nt: int, plan: Optional[RowsPlan] = None) -> None:
+    """One launch of the row kernel (K1 with ``b`` None, else K2) on
+    validated CUDA operands, with ``plan`` or the cached plan of the shape."""
+    dev = v.device.index
+    ptrs = (coeffs.data_ptr(), v.data_ptr(), out.data_ptr()) if b is None else (
+        coeffs.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr())
+    if plan is None:
+        aligned = not (ptrs[1] | ptrs[2] | ptrs[-1]) & 15
+        arr = _plan_for(b is not None, B, nx, nt, itemsize, aligned, dev)
+    else:
+        arr = plan.c_array(B, nx, nt, dev)
+    _check(_fn(name, sfx)(*ptrs, arr, _raw_stream(dev)), name)
+
+
 # ---- public wrappers ---------------------------------------------------------
 
 def stencil_matvec(coeffs: torch.Tensor, v: torch.Tensor, nx: int,
                    nt: int) -> torch.Tensor:
-    """K1: y = D v for complex v of shape (..., 2*nx*nt)."""
+    """K1: y = D v for complex v of shape (..., 2*nx*nt), by the row kernel."""
     if not _dispatch(v):
         return stencil_matvec_plain(coeffs, v, nx, nt)
-    B = _check_operands(coeffs, nx, nt, v)
-    lib = load_library()
+    sfx, itemsize, B = _check_operands(coeffs, nx, nt, v)
     y = torch.empty_like(v)
-    fn = getattr(lib, f"dmlmc_stencil_matvec_{_SUFFIX[v.dtype]}")
-    with torch.cuda.device(v.device):
-        _check(fn(coeffs.data_ptr(), v.data_ptr(), y.data_ptr(), B, nx, nt,
-                  _stream(v.device)), "stencil_matvec")
-    stencil_matvec.launches += 1
+    if B:
+        _launch_rows("stencil_matvec", sfx, itemsize, coeffs, None, v, y, B, nx, nt)
+        stencil_matvec.launches += 1
     return y
 
 
 def stencil_residual(coeffs: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                      nx: int, nt: int) -> torch.Tensor:
-    """K2: r = b - D x in one pass."""
+    """K2: r = b - D x in one pass, by the row kernel."""
     if not _dispatch(b):
         return stencil_residual_plain(coeffs, b, x, nx, nt)
-    B = _check_operands(coeffs, nx, nt, b, x)
-    lib = load_library()
+    sfx, itemsize, B = _check_operands(coeffs, nx, nt, b, x)
     r = torch.empty_like(b)
-    fn = getattr(lib, f"dmlmc_stencil_residual_{_SUFFIX[b.dtype]}")
-    with torch.cuda.device(b.device):
-        _check(fn(coeffs.data_ptr(), b.data_ptr(), x.data_ptr(), r.data_ptr(), B,
-                  nx, nt, _stream(b.device)), "stencil_residual")
-    stencil_residual.launches += 1
+    if B:
+        _launch_rows("stencil_residual", sfx, itemsize, coeffs, b, x, r, B, nx, nt)
+        stencil_residual.launches += 1
+    return r
+
+
+def stencil_matvec_per_site(coeffs: torch.Tensor, v: torch.Tensor, nx: int,
+                            nt: int) -> torch.Tensor:
+    """The first K1, one thread per site: the same function as
+    ``stencil_matvec``. On no path; kept to be timed beside the row kernel."""
+    if not _dispatch(v):
+        return stencil_matvec_plain(coeffs, v, nx, nt)
+    sfx, _, B = _check_operands(coeffs, nx, nt, v)
+    y = torch.empty_like(v)
+    dev = v.device.index
+    _check(_fn("stencil_matvec_per_site", sfx)(
+        coeffs.data_ptr(), v.data_ptr(), y.data_ptr(), B, nx, nt, dev, _raw_stream(dev)),
+        "stencil_matvec_per_site")
+    stencil_matvec_per_site.launches += 1
+    return y
+
+
+def stencil_residual_per_site(coeffs: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                              nx: int, nt: int) -> torch.Tensor:
+    """The first K2, one thread per site (the yardstick, on no path)."""
+    if not _dispatch(b):
+        return stencil_residual_plain(coeffs, b, x, nx, nt)
+    sfx, _, B = _check_operands(coeffs, nx, nt, b, x)
+    r = torch.empty_like(b)
+    dev = b.device.index
+    _check(_fn("stencil_residual_per_site", sfx)(
+        coeffs.data_ptr(), b.data_ptr(), x.data_ptr(), r.data_ptr(), B, nx, nt, dev,
+        _raw_stream(dev)), "stencil_residual_per_site")
+    stencil_residual_per_site.launches += 1
     return r
 
 
@@ -351,7 +593,7 @@ def _poly_operands(coeffs, r, roots, nx, nt):
         raise ValueError("the polynomial smoother needs at least one root")
     if not _dispatch(r):
         return roots, None
-    return roots, _check_operands(coeffs, nx, nt, r)
+    return roots, _check_operands(coeffs, nx, nt, r)[2]
 
 
 def stencil_poly_smooth(coeffs: torch.Tensor, r: torch.Tensor,
@@ -373,13 +615,12 @@ def stencil_poly_smooth(coeffs: torch.Tensor, r: torch.Tensor,
 def _poly_tiled(coeffs, r, roots, nx, nt, with_residual, B, depth):
     """The launches of ``stencil_poly_smooth`` on validated CUDA operands,
     at most ``depth`` <= MAX_FUSE roots each."""
-    lib = load_library()
-    fn = getattr(lib, f"dmlmc_stencil_poly_tiled_{_SUFFIX[r.dtype]}")
+    fn = _fn("stencil_poly_tiled", _SUFFIX[r.dtype])
     x = torch.empty_like(r)
     bufs = [None, None]  # ping-pong for cur between launches
     cur = r
     with torch.cuda.device(r.device):
-        stream = _stream(r.device)
+        stream = _raw_stream(r.device.index)
         for i, (first, n) in enumerate(fused_passes(len(roots), depth)):
             apply_last = first + n < len(roots) or with_residual
             out = None
@@ -410,13 +651,12 @@ def stencil_poly_smooth_per_root(coeffs: torch.Tensor, r: torch.Tensor,
     roots, B = _poly_operands(coeffs, r, roots, nx, nt)
     if B is None:
         return stencil_poly_smooth_plain(coeffs, r, roots, nx, nt, with_residual)
-    lib = load_library()
-    fn = getattr(lib, f"dmlmc_stencil_poly_step_{_SUFFIX[r.dtype]}")
+    fn = _fn("stencil_poly_step", _SUFFIX[r.dtype])
     x = torch.empty_like(r)
     bufs = (torch.empty_like(r), torch.empty_like(r))  # ping-pong for cur
     cur = r
     with torch.cuda.device(r.device):
-        stream = _stream(r.device)
+        stream = _raw_stream(r.device.index)
         for k, th in enumerate(roots):
             inv = 1.0 / th
             apply = k < len(roots) - 1 or with_residual
@@ -431,18 +671,25 @@ def stencil_poly_smooth_per_root(coeffs: torch.Tensor, r: torch.Tensor,
 
 
 # The kernels of the main path, whose launches ``launch_counts`` reports. K3
-# counts launches of the tiled kernel (several roots each). The per-root
-# kernel keeps a count of its own, which stays 0 on every path.
+# counts launches of the tiled kernel (several roots each). The yardsticks
+# (per-root K3, per-site K1 and K2) keep counts of their own, which stay 0
+# on every path (``yardstick_counts``).
 KERNELS = (stencil_matvec, stencil_residual, stencil_poly_smooth)
+YARDSTICKS = (stencil_poly_smooth_per_root, stencil_matvec_per_site,
+              stencil_residual_per_site)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS + (stencil_poly_smooth_per_root,):
+    for fn in KERNELS + YARDSTICKS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def yardstick_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in YARDSTICKS}
 
 
 reset_launch_counts()

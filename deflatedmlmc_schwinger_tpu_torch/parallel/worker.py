@@ -148,4 +148,5 @@ def run_entry(name: str, device: str = "cuda"):
     out["phase_seconds"] = dict(result["timer"].totals)
     out["transport_seconds"] = dict(result["timer"].transport)
     out["kernel_launches"] = stencil_kernels.launch_counts()
+    out["yardstick_launches"] = stencil_kernels.yardstick_counts()
     return out

@@ -43,6 +43,7 @@ def _counters():
     # a CPU tensor never launches a kernel
     assert sk.launch_counts() == {"stencil_matvec": 0, "stencil_residual": 0,
                                   "stencil_poly_smooth": 0}
+    assert not any(sk.yardstick_counts().values())
 
 
 @pytest.mark.parametrize("nx,nt", LATTICES)
@@ -95,6 +96,10 @@ def test_wrappers_refuse_other_devices():
         sk.stencil_matvec(C, v, 4, 6)
     with pytest.raises(RuntimeError):
         sk.stencil_residual(C, v, v, 4, 6)
+    with pytest.raises(RuntimeError):
+        sk.stencil_matvec_per_site(C, v, 4, 6)
+    with pytest.raises(RuntimeError):
+        sk.stencil_residual_per_site(C, v, v, 4, 6)
     with pytest.raises(RuntimeError):
         sk.stencil_poly_smooth(C, v, (2.0,), 4, 6)
     with pytest.raises(RuntimeError):
