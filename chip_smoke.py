@@ -93,7 +93,15 @@
    loop, the same result on every rank, stalled rows within
    max_stalled_frac, K1 and K2 launched by rank 0 on the sharded path;
    prints walls, phase seconds and the transport share of sampling.
-13. Prints the card's name and power limit, a JSON line with the kernels'
+13. The complex64 policies on the 16^2 operator (SMALL_MATRIX built in
+   complex64, a 3-level hierarchy, K1 and K2 must launch): a crippled solver
+   must make hutchinson and mlmc raise the stall error under the default
+   max_stalled_frac and report stalled rows with 1.0; 32 matched probes
+   solved in complex64 at the floor and at 5e-4 must stay within 1e-3 and
+   5e-3 of |tr| of the same probes solved in complex128; two float64
+   refinement steps must cut the error of the deflation correction tr1 at
+   least tenfold against a dense complex128 oracle.
+14. Prints the card's name and power limit, a JSON line with the kernels'
    numbers (launches per path; for K1 and K2 per_site_kernel_ms, device_ms,
    per_site_device_ms, host_us and per_site_host_us), and as the last line
    {"ok": true, "device": {...}}.
@@ -1127,6 +1135,130 @@ def check_parallel(device) -> dict:
     return dict(kernels=padded, counts=counts)
 
 
+# ---- phase 13: the complex64 policies on the 16^2 operator --------------------
+
+# the 3-level 16^2 hierarchy of the JAX package's bias, refinement and stall tests
+POLICY_LEVELS = dict(matrix=SMALL_MATRIX, mass=SMALL_MASS, latt_dims=(16, 16),
+                     max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
+                     test_vectors_type="RSVs", use_permuted=False)
+BIAS_PROBES = 32
+BIAS_BOUNDS = ((1e-12, 1e-3), (5e-4, 5e-3))   # (function_tol, bound on |bias| / |tr|)
+REFINE_CUT = 0.1                              # error after 2 refinement steps / before
+
+
+def check_complex64_policies(device, exact16: complex) -> dict:
+    """Phase 13: the estimator policies that guard the trace against bias,
+    in complex64 on SMALL_MATRIX (a complex64 operator) through K1 and K2.
+
+    * Stall: with a crippled solver (4 Arnoldi steps, one cycle, against
+      function_tol 1e-13, which complex64 clips to its floor) hutchinson and
+      mlmc must raise the stall error under the default max_stalled_frac,
+      and with max_stalled_frac 1.0 report stalled_rows > 0.
+    * Bias: 32 matched Rademacher probes solved in complex64 at the floor
+      and at 5e-4 and in complex128 at 1e-13; |mean difference| / |tr| must
+      stay below 1e-3 and 5e-3 (tr: ``exact16``, the dense trace).
+    * Refinement: hutchinson_deflation in complex64 (k = 16, function_tol
+      1e-4) with 0 and 2 float64 refinement steps, each tr1 against
+      tr(U^H A^-1 U) from the complex128 inverse of the complex64-rounded
+      operator; 2 steps must cut the error at least tenfold.
+    Returns the kernel launches of the phase."""
+    import numpy as np
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig, TraceConfig
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, setup_hierarchy
+    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
+    from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson, mlmc
+    from deflatedmlmc_schwinger_tpu_torch.trace.deflation import hutchinson_deflation
+
+    label = "c64 policies"
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ops = {dt: load_operator(SMALL_MATRIX, SMALL_MASS, dtype=dt, device=device)[0]
+           for dt in (torch.complex64, torch.complex128)}
+    op = ops[torch.complex64]
+
+    crippled = TraceConfig(dtype=torch.complex64, trace_tol=10.0, nr_deflat_vctrs=0,
+                           mlmc_deflat_vctrs=(0, 0), mlmc_levels_to_skip=(), probe_batch=8,
+                           max_nr_ests=16, function_tol=1e-13, chebyshev_degree=8,
+                           subspace_iters=1, solver=SolverConfig(restart=4, max_restarts=1),
+                           **POLICY_LEVELS)
+    solver = MGSolver(setup_hierarchy(op, crippled), crippled.solver)
+    for name, estimator in (("hutchinson", hutchinson), ("mlmc", mlmc)):
+        try:
+            estimator(op, crippled, solver=solver, verbose=False)
+        except RuntimeError as err:
+            if "stalled" not in str(err):
+                raise
+            raised = str(err).split(":")[0]
+        else:
+            raise RuntimeError(f"{label}: the crippled {name} run raised no stall error")
+        relaxed = estimator(op, crippled.replace(max_stalled_frac=1.0), solver=solver,
+                            verbose=False)
+        print(f"[{label}] stall {name}: default policy raised in '{raised}'; with "
+              f"max_stalled_frac 1.0 stalled_rows {relaxed['stalled_rows']}, trace "
+              f"{complex(relaxed['trace'])}")
+        if relaxed["stalled_rows"] <= 0:
+            raise RuntimeError(f"{label}: the relaxed crippled {name} run stalled no row")
+
+    bias_cfg = TraceConfig(dtype=torch.complex64, chebyshev_degree=50, subspace_iters=4,
+                           **POLICY_LEVELS)
+    rng = np.random.default_rng(4242)
+    X = torch.from_numpy(rng.choice([-1.0, 1.0], size=(BIAS_PROBES, op.n))).to(
+        device=device, dtype=torch.complex128)
+
+    def estimates(dt, tol):
+        cfg = bias_cfg.replace(dtype=dt)
+        res = MGSolver(setup_hierarchy(ops[dt], cfg), cfg.solver).solve(X.to(dt), tol)
+        relres = float((res.resnorm / res.bnorm).max())
+        return (X.conj() * res.x.to(torch.complex128)).sum(-1), relres
+
+    oracle, relres = estimates(torch.complex128, 1e-13)
+    print(f"[{label}] bias: complex128 oracle of {BIAS_PROBES} probes at 1e-13, max relative "
+          f"residual {relres:.3e}")
+    if relres > 1e-10:
+        raise RuntimeError(f"{label}: the complex128 oracle solves reached only {relres:.3e}")
+    for tol, bound in BIAS_BOUNDS:
+        e32, relres = estimates(torch.complex64, tol)
+        rel_bias = float((e32 - oracle).mean().abs()) / abs(exact16)
+        print(f"[{label}] bias: complex64 at function_tol {tol:g} (effective "
+              f"{bias_cfg.solver.effective_tol(tol, torch.complex64):g}, max relative residual "
+              f"{relres:.3e}): |mean(e64 - e128)| / |tr| = {rel_bias:.3e} (bound {bound:g})")
+        if not rel_bias < bound:
+            raise RuntimeError(f"{label}: complex64 bias {rel_bias:.3e} at {tol:g} is not "
+                               f"below {bound:g}")
+
+    refine_cfg = TraceConfig(dtype=torch.complex64, chebyshev_degree=40, subspace_iters=3,
+                             probe_batch=16, nr_deflat_vctrs=16, defl_buffer=16,
+                             defl_subspace_rounds=2, defl_eigvs_tol_Hutch=1e-3,
+                             function_tol=1e-4, **POLICY_LEVELS)
+    solver = MGSolver(setup_hierarchy(op, refine_cfg), refine_cfg.solver)
+    eye = torch.eye(op.n, dtype=torch.complex128, device=device)
+    D64 = sk.stencil_matvec_plain(op.coeffs.to(torch.complex128), eye, op.nx, op.nt).T
+    Ainv = torch.linalg.inv(D64)
+    errs = {}
+    for steps in (0, 2):
+        d = hutchinson_deflation(op, solver, refine_cfg.replace(defl_refine_steps=steps))
+        U = d.U.to(torch.complex128)
+        oracle_tr1 = complex((U.conj() * (Ainv @ U)).sum().item())
+        errs[steps] = abs(d.tr1 - oracle_tr1)
+        print(f"[{label}] refinement: {steps} steps, tr1 {d.tr1:.10f}, oracle "
+              f"{oracle_tr1:.10f}, error {errs[steps]:.3e} "
+              f"({errs[steps] / abs(oracle_tr1):.3e} relative)")
+    if not errs[2] <= REFINE_CUT * errs[0]:
+        raise RuntimeError(f"{label}: refinement cut the tr1 error from {errs[0]:.3e} to "
+                           f"{errs[2]:.3e}, less than tenfold")
+
+    counts = sk.launch_counts()
+    print(f"[{label}] kernel launches {counts}; phase {time.perf_counter() - t0:.2f} s")
+    missing = [k for k in ("stencil_matvec", "stencil_residual") if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{label} did not launch {missing}")
+    _no_yardstick_launch(label, sk.yardstick_counts())
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1210,6 +1342,7 @@ def main() -> None:
     ranks = check_parallel(device)
     kernels.update(ranks["kernels"])
     counts.update(ranks["counts"])
+    counts["c64 policies"] = check_complex64_policies(device, exact16)
 
     entries = []
     for name, replaces in REPLACES.items():

@@ -152,6 +152,32 @@ def pack_grouped(op: BlockStencilOperator, group: int = 8,
     )
 
 
+def block_stencil_from_dense(C: np.ndarray, dc: int, dtype: torch.dtype,
+                             max_offsets: int = 48,
+                             device=None) -> Optional[BlockStencilOperator]:
+    """The cyclic block stencil of a dense (n, n) coarse matrix with
+    (dc, dc) blocks, packed by ``pack_grouped``, on ``device`` in ``dtype``;
+    None when n is no multiple of dc or more than ``max_offsets`` cyclic
+    block offsets couple (the matrix then stays a DenseOperator)."""
+    n = C.shape[0]
+    if n % dc:
+        return None
+    nac = n // dc
+    Cb = C.reshape(nac, dc, nac, dc).transpose(0, 2, 1, 3)   # (nac, nac, dc, dc)
+    norms = np.abs(Cb).reshape(nac, nac, -1).max(axis=-1)
+    j1, j2 = np.nonzero(norms)
+    offsets = sorted({int((b - a) % nac) for a, b in zip(j1, j2)})
+    if len(offsets) > max_offsets:
+        return None
+    blocks = np.zeros((nac, len(offsets), dc, dc), dtype=C.dtype)
+    rows = np.arange(nac)
+    for k, off in enumerate(offsets):
+        blocks[:, k] = Cb[rows, (rows + off) % nac]
+    return pack_grouped(BlockStencilOperator(
+        blocks=torch.from_numpy(blocks).to(device=device, dtype=dtype),
+        offsets=offsets), host_blocks=blocks)
+
+
 class BlockProlongator(nn.Module):
     """Aggregation prolongator as dense per-aggregate blocks (na, L, 2k);
     the coarse index layout is aggregate-major, j*(2k) + c."""
@@ -159,6 +185,14 @@ class BlockProlongator(nn.Module):
     def __init__(self, blocks: torch.Tensor):
         super().__init__()
         self.register_buffer("blocks", blocks)
+
+    @property
+    def n_fine(self) -> int:
+        return self.blocks.shape[0] * self.blocks.shape[1]
+
+    @property
+    def n_coarse(self) -> int:
+        return self.blocks.shape[0] * self.blocks.shape[2]
 
     def apply(self, y: torch.Tensor) -> torch.Tensor:
         """P @ y for flat coarse vectors y of shape (..., n_coarse)."""

@@ -231,9 +231,24 @@ def setup_hierarchy(op0, cfg: TraceConfig) -> Hierarchy:
     return hier
 
 
+def g3_compatibility(P: np.ndarray, na: int) -> float:
+    """||gamma3 P - P gamma3_c||_F for a dense (n_f, n_c) prolongator of
+    ``na`` aggregates: gamma3 is +1 on the first spin half of the fine
+    indices and -1 on the second, gamma3_c the sign of each aggregate
+    (+1 for the first na/2 in the aggregate-major coarse layout) repeated
+    over its n_c/na columns. 0 when no aggregate straddles the spin halves
+    and every aggregate keeps its position."""
+    nf, nc = P.shape
+    s_f = np.where(np.arange(nf) < nf // 2, 1.0, -1.0)
+    s_c = np.repeat(np.where(np.arange(na) < na // 2, 1.0, -1.0), nc // na)
+    return float(np.linalg.norm(s_f[:, None] * P - P * s_c[None, :]))
+
+
 def check_quality(hier: Hierarchy) -> Dict[str, float]:
     """The reference's invariant checks: orthonormality ||RP - I||_F,
-    gamma3-compatibility of P, Hermiticity of A_{l+1} and gamma3 A_{l+1}."""
+    gamma3-compatibility of P (``g3_compatibility``; the JAX package's
+    check subtracts the sign from itself and always reads 0), Hermiticity
+    of A_{l+1} and gamma3 A_{l+1}."""
     out: Dict[str, float] = {}
     for i, lev in enumerate(list(hier.levels)[:-1]):
         b = lev.P.blocks.detach().cpu().numpy()
@@ -241,11 +256,7 @@ def check_quality(hier: Hierarchy) -> Dict[str, float]:
         gram = np.einsum("alk,alm->akm", np.conj(b), b)
         out[f"orthonormality of P at level {i}"] = float(
             np.sqrt(np.sum(np.abs(gram - np.eye(dc)[None]) ** 2)))
-        # aggregates never straddle the spin half and the coarse layout is
-        # aggregate-major, so fine and coarse per-strip signs agree
-        sign = np.where(np.arange(na) < na // 2, 1.0, -1.0)
-        mism = (sign - sign)[:, None, None] * b
-        out[f"g3-compatibility at level {i}"] = float(np.sqrt(np.sum(np.abs(mism) ** 2)))
+        out[f"g3-compatibility at level {i}"] = g3_compatibility(lev.P.to_dense(), na)
         Ac = hier.levels[i + 1].op.complex_matrix()
         out[f"hermiticity of A at level {i+1}"] = float(np.linalg.norm(Ac - Ac.conj().T))
         half = Ac.shape[0] // 2

@@ -42,3 +42,16 @@ class PhaseTimer:
             self.totals[name] += time.perf_counter() - t0
             self.transport[name] += transport_stats["seconds"] - moved0
             self.counts[name] += 1
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+        self.transport.clear()
+
+    def __str__(self) -> str:
+        lines = ["\nTimings specific to computations:"]
+        for name in sorted(self.totals):
+            lines.append(
+                f" -- {name} : {self.totals[name]:.4f} s ({self.counts[name]} calls)")
+        lines.append(f" -- accumulated time : {sum(self.totals.values()):.4f} s")
+        return "\n".join(lines)
