@@ -33,6 +33,7 @@ from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import (
     _norm,
     fgmres,
 )
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import span
 
 
 def _solve_hpd_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -198,35 +199,46 @@ class GmresSmoother:
 
 
 def build_v_cycle(levels, coarsest_inv: torch.Tensor, smoothers,
-                  with_residual: bool = False) -> Callable:
+                  with_residual: bool = False, first_level: int = 0) -> Callable:
     """V-cycle closure over an explicit level list; ``smoothers[i]`` pairs
     with ``levels[i]``. With ``with_residual`` the cycle returns
     (x, b - A x): the top level's post-smoother emits its own final residual
     (free from the polynomial recurrence), so the caller's next operator
-    application is b minus that residual (MGSolver.precond_matvec)."""
+    application is b minus that residual (MGSolver.precond_matvec).
+
+    Spans (utils/timer.py): ``vcycle`` around one application, and per level
+    l of the hierarchy (``first_level`` is the index of ``levels[0]``)
+    ``vcycle.l{l}.down`` (pre-smoothing and restriction), ``vcycle.l{l}.up``
+    (prolongation, residual and post-smoothing), and ``vcycle.coarsest``."""
+    n_up = len(levels) - 1
+    down = [f"vcycle.l{first_level + i}.down" for i in range(n_up)]
+    up = [f"vcycle.l{first_level + i}.up" for i in range(n_up)][::-1]
 
     def v_cycle(b: torch.Tensor):
-        bs = [b]
-        xs = []
-        for lev, sm in zip(levels[:-1], smoothers):
-            x, r = sm.smooth_residual(lev.op, bs[-1])
-            xs.append(x)
-            bs.append(lev.P.apply_adjoint(r))
-        xc = bs[-1] @ coarsest_inv.T
-        out_res = None
-        n_up = len(levels) - 1
-        for idx, (lev, sm, x, bf) in enumerate(zip(
-                levels[-2::-1], smoothers[::-1], xs[::-1], bs[-2::-1])):
-            x = x + lev.P.apply(xc)
-            r = residual(lev.op, bf, x)
-            if with_residual and idx == n_up - 1:
-                dx, out_res = sm.smooth_residual(lev.op, r)
-                xc = x + dx
-            else:
-                xc = x + sm.smooth(lev.op, r)
-        if with_residual:
-            return xc, out_res
-        return xc
+        with span("vcycle"):
+            bs = [b]
+            xs = []
+            for name, lev, sm in zip(down, levels[:-1], smoothers):
+                with span(name):
+                    x, r = sm.smooth_residual(lev.op, bs[-1])
+                    xs.append(x)
+                    bs.append(lev.P.apply_adjoint(r))
+            with span("vcycle.coarsest"):
+                xc = bs[-1] @ coarsest_inv.T
+            out_res = None
+            for idx, (name, lev, sm, x, bf) in enumerate(zip(
+                    up, levels[-2::-1], smoothers[::-1], xs[::-1], bs[-2::-1])):
+                with span(name):
+                    x = x + lev.P.apply(xc)
+                    r = residual(lev.op, bf, x)
+                    if with_residual and idx == n_up - 1:
+                        dx, out_res = sm.smooth_residual(lev.op, r)
+                        xc = x + dx
+                    else:
+                        xc = x + sm.smooth(lev.op, r)
+            if with_residual:
+                return xc, out_res
+            return xc
 
     return v_cycle
 
@@ -289,7 +301,7 @@ class MGSolver:
         if level not in self._preconds:
             self._preconds[level] = build_v_cycle(
                 list(self.hier.levels)[level:], self.hier.coarsest_inv,
-                self._smoothers(level),
+                self._smoothers(level), first_level=level,
             )
         return self._preconds[level]
 
@@ -302,7 +314,8 @@ class MGSolver:
         key = ("pm", level)
         if key not in self._preconds:
             vc = build_v_cycle(list(self.hier.levels)[level:], self.hier.coarsest_inv,
-                               self._smoothers(level), with_residual=True)
+                               self._smoothers(level), with_residual=True,
+                               first_level=level)
 
             def pm(v: torch.Tensor):
                 z, r = vc(v)

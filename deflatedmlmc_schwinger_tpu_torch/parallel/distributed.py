@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from deflatedmlmc_schwinger_tpu_torch.trace.stats import RunningMoments
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,13 +121,16 @@ def reset_transport_stats() -> None:
 
 
 class _Timed:
-    """Times one transport call into ``transport_stats``."""
+    """Times one transport call into ``transport_stats``, inside a
+    ``transport.<op>`` span (utils/timer.py)."""
 
-    def __init__(self, g: Group, *tensors: torch.Tensor):
+    def __init__(self, g: Group, op: str, *tensors: torch.Tensor):
         self.tensors = tensors
         self.gloo = dist.get_backend(g.pg) == "gloo"
+        self.span = span("transport." + op)
 
     def __enter__(self):
+        self.span.__enter__()
         # gloo's staging copy to the host waits for the device in any case;
         # waiting first keeps that wait out of the seconds. nccl gets no
         # wait: its collectives stay ordered on the stream.
@@ -140,6 +144,7 @@ class _Timed:
         transport_stats["calls"] += 1
         transport_stats["bytes"] += sum(t.numel() * t.element_size() for t in self.tensors)
         transport_stats["seconds"] += time.perf_counter() - self.t0
+        self.span.__exit__(*exc)
 
 
 def _stage(t: torch.Tensor, g: Group) -> torch.Tensor:
@@ -162,7 +167,7 @@ def all_sum(t: torch.Tensor, g: Optional[Group]) -> torch.Tensor:
     """Sum of ``t`` over the group, on every member."""
     if g is None or g.size == 1:
         return t
-    with _Timed(g, t):
+    with _Timed(g, "all_sum", t):
         buf = _stage(t, g)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g.pg)
         return _unstage(buf, t)
@@ -177,7 +182,7 @@ def all_any(flag, g: Optional[Group]) -> bool:
         return bool(flag)
     mine = bool(flag)      # waits for the device where the flag lives there
     buf = torch.tensor([1 if mine else 0], dtype=torch.int32)
-    with _Timed(g, buf):
+    with _Timed(g, "all_any", buf):
         if dist.get_backend(g.pg) == "nccl":
             buf = buf.cuda()
         dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=g.pg)
@@ -189,7 +194,7 @@ def all_gather_cat(t: torch.Tensor, g: Optional[Group], dim: int = 0) -> torch.T
     group order, on every member."""
     if g is None or g.size == 1:
         return t
-    with _Timed(g, t):
+    with _Timed(g, "all_gather_cat", t):
         buf = _stage(t, g)
         parts = [torch.empty_like(buf) for _ in range(g.size)]
         dist.all_gather(parts, buf, group=g.pg)
@@ -203,7 +208,7 @@ def ring_exchange(to_prev: torch.Tensor, to_next: torch.Tensor, g: Group):
     member sent on), i.e. (from_next, from_prev)."""
     prev = g.ranks[(g.index - 1) % g.size]
     nxt = g.ranks[(g.index + 1) % g.size]
-    with _Timed(g, to_prev, to_next):
+    with _Timed(g, "ring_exchange", to_prev, to_next):
         s_prev, s_next = _stage(to_prev, g), _stage(to_next, g)
         r_next, r_prev = torch.empty_like(s_prev), torch.empty_like(s_next)
         # tag 0 travels down the ring, tag 1 up; on a ring of two both peers
@@ -237,7 +242,7 @@ def broadcast_object(obj, g: Group, device, src: int = 0):
         data = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     else:
         data = torch.empty(int(size.item()), dtype=torch.uint8)
-    with _Timed(g, data):
+    with _Timed(g, "broadcast_object", data):
         data = data.cuda() if nccl else data
         dist.broadcast(data, src=g.ranks[src], group=g.pg)
     if me:

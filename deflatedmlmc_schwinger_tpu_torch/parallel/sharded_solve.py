@@ -125,7 +125,8 @@ class ShardedMGSolver:
             coarse_sms = [GmresSmoother(m)] * (hier.nr_levels - 2)
         else:
             raise ValueError(f"smoother must be 'gmres' or 'poly', got {self.cfg.smoother!r}")
-        self._coarse_v = build_v_cycle(self._coarse_levels, self._coarsest_inv, coarse_sms)
+        self._coarse_v = build_v_cycle(self._coarse_levels, self._coarsest_inv, coarse_sms,
+                                       first_level=1)
 
     # -- this rank's pieces of the level-0 V-cycle, on (B/s, 2 * X/k * T) rows --
     def _grid(self, v: torch.Tensor) -> torch.Tensor:

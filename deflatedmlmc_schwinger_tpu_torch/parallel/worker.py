@@ -127,7 +127,8 @@ def run_entry(name: str, device: str = "cuda"):
     """One rank's share of a gateway entry started with ``devices=N``. The
     result travels back as host numbers: the estimator's result without its
     timer and tensors, the phase seconds and the seconds of each phase spent
-    in transport, this rank's kernel launches during the entry, and
+    in transport and in host reads, this rank's kernel launches during the
+    entry, and
     ``ranks_agree``: whether every rank of the group got the same result
     (``ranks_differ_in`` names the keys that differ)."""
     import torch.distributed as dist
@@ -147,6 +148,7 @@ def run_entry(name: str, device: str = "cuda"):
         out["backend"] = dist.get_backend()
     out["phase_seconds"] = dict(result["timer"].totals)
     out["transport_seconds"] = dict(result["timer"].transport)
+    out["host_read_seconds"] = dict(result["timer"].host_read)
     out["kernel_launches"] = stencil_kernels.launch_counts()
     out["yardstick_launches"] = stencil_kernels.yardstick_counts()
     return out

@@ -64,5 +64,8 @@ def result_to_json(cfg: TraceConfig, result: Dict, example: str) -> str:
             for r in result["results"]
         ]
     if "timer" in result:
+        # each phase's seconds, and the seconds of it spent blocked in host
+        # reads of device values (utils/timer.py host_read)
         out["phase_seconds"] = dict(result["timer"].totals)
+        out["host_read_seconds"] = dict(result["timer"].host_read)
     return json.dumps(out)

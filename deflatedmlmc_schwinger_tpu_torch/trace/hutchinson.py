@@ -46,7 +46,7 @@ from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
     sample_to_stop_host,
 )
 from deflatedmlmc_schwinger_tpu_torch.utils.flops import flops_vcycle, level_nnz
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer, span
 
 
 def sample_rows(x: torch.Tensor, mesh, cfg: TraceConfig):
@@ -84,24 +84,26 @@ def hutchinson_step_batch(op, solver: MGSolver, cfg: TraceConfig,
     solution back on every rank; default: the replicated MGSolver. ``mesh``:
     without a fine solver, every rank solves its rows of the batch, and the
     gathered results are the whole batch's on every rank."""
-    rows_mesh = None
-    if fine_solver is None:
-        probes, rows_mesh = sample_rows(probes, mesh, cfg)
-    x_def = deflate(probes, defl.U)
-    d = solver.hier.levels[0].perm_shift
-    if cfg.use_permuted and d:
-        x_def = shift_rows_down(x_def, d)
-    if fine_solver is not None:
-        res = fine_solver.solve(x_def, cfg.function_tol)
-    else:
-        res = solver.solve(x_def, cfg.function_tol,
-                           pred_group=None if rows_mesh is None else rows_mesh.world)
-    e = (probes.conj() * res.x).sum(-1)
-    if not gather:
-        if rows_mesh is not None:
-            raise ValueError("a batch split over a mesh is gathered on the host")
-        return e, res.iters, res.stalled
-    return gather_rows(rows_mesh, cfg, e, res.iters, res.stalled)
+    with span("est.batch"):
+        rows_mesh = None
+        if fine_solver is None:
+            probes, rows_mesh = sample_rows(probes, mesh, cfg)
+        with span("est.deflate"):
+            x_def = deflate(probes, defl.U)
+            d = solver.hier.levels[0].perm_shift
+            if cfg.use_permuted and d:
+                x_def = shift_rows_down(x_def, d)
+        if fine_solver is not None:
+            res = fine_solver.solve(x_def, cfg.function_tol)
+        else:
+            res = solver.solve(x_def, cfg.function_tol,
+                               pred_group=None if rows_mesh is None else rows_mesh.world)
+        e = (probes.conj() * res.x).sum(-1)
+        if not gather:
+            if rows_mesh is not None:
+                raise ValueError("a batch split over a mesh is gathered on the host")
+            return e, res.iters, res.stalled
+        return gather_rows(rows_mesh, cfg, e, res.iters, res.stalled)
 
 
 def make_fine_solver(hier, mesh, cfg: TraceConfig, log):

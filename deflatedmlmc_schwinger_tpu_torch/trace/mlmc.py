@@ -83,7 +83,7 @@ from deflatedmlmc_schwinger_tpu_torch.trace.stats import (
     sample_to_stop_host,
 )
 from deflatedmlmc_schwinger_tpu_torch.utils.flops import flops_vcycle, level_nnz
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer, span
 
 
 def bblock_apply(hier: Hierarchy, level: int, v: torch.Tensor) -> torch.Tensor:
@@ -183,46 +183,50 @@ def mlmc_step_batch(solver: MGSolver, cfg: TraceConfig, level: int,
     batch on every rank. ``mesh``: otherwise every rank takes its rows of
     the batch and the results are gathered (trace/hutchinson.py
     ``sample_rows``)."""
-    hier = solver.hier
-    fine, coarse, restrict, prolong = level_structure(solver, level, skip_level)
-    coarsest = hier.nr_levels - 1
-    sharded_fine = fine_solver is not None and fine == 0
-    rows_mesh = None
-    if not sharded_fine:
-        probes, rows_mesh = sample_rows(probes, mesh, cfg)
-    pred_group = None if rows_mesh is None else rows_mesh.world
-    x0 = probes
-    if defl.U is not None and cfg.defl_type == "inexact_03":
-        # oblique projector x - V (U^H A V)^{-1} U^H A x
-        t = solver.matvec(level)(x0) @ defl.aux_V.conj()          # (B, k)
-        x_def = x0 - (t @ defl.proj_B.T) @ defl.U.T
-    else:
-        x_def = deflate(x0, defl.U)
-    if cfg.use_permuted:
-        x_def = shift_rows_down(x_def, hier.levels[level].perm_shift)
-        x_def = bblock_apply(hier, level, x_def)
+    with span("est.batch"):
+        hier = solver.hier
+        fine, coarse, restrict, prolong = level_structure(solver, level, skip_level)
+        coarsest = hier.nr_levels - 1
+        sharded_fine = fine_solver is not None and fine == 0
+        rows_mesh = None
+        if not sharded_fine:
+            probes, rows_mesh = sample_rows(probes, mesh, cfg)
+        pred_group = None if rows_mesh is None else rows_mesh.world
+        x0 = probes
+        with span("est.deflate"):
+            if defl.U is not None and cfg.defl_type == "inexact_03":
+                # oblique projector x - V (U^H A V)^{-1} U^H A x
+                t = solver.matvec(level)(x0) @ defl.aux_V.conj()          # (B, k)
+                x_def = x0 - (t @ defl.proj_B.T) @ defl.U.T
+            else:
+                x_def = deflate(x0, defl.U)
+            if cfg.use_permuted:
+                x_def = shift_rows_down(x_def, hier.levels[level].perm_shift)
+                x_def = bblock_apply(hier, level, x_def)
 
-    if sharded_fine:
-        res_f = fine_solver.solve(x_def, cfg.function_tol)
-    else:
-        res_f = solver.solve(x_def, cfg.function_tol, level=fine, pred_group=pred_group)
-    e1 = (x0.conj() * res_f.x).sum(-1)
-    xc = restrict(x_def)
-    ones = torch.ones(x0.shape[0], dtype=torch.int32, device=x0.device)
-    if coarse == coarsest:
-        y, iters2, stalled = solver.coarsest_solve(xc), ones, res_f.stalled
-    elif coarse_dense_inv is not None:
-        y, iters2, stalled = xc @ coarse_dense_inv.T, ones, res_f.stalled
-    else:
-        res_c = solver.solve(xc, cfg.function_tol, level=coarse, pred_group=pred_group)
-        y, iters2, stalled = res_c.x, res_c.iters, res_f.stalled | res_c.stalled
-    e = e1 - (x0.conj() * prolong(y)).sum(-1)
-    if not gather:
-        if rows_mesh is not None:
-            raise ValueError("a batch split over a mesh is gathered on the host")
-        return e, res_f.iters, iters2, coarse, stalled
-    es, it1, it2, stall = gather_rows(rows_mesh, cfg, e, res_f.iters, iters2, stalled)
-    return es, it1, it2, coarse, stall
+        if sharded_fine:
+            res_f = fine_solver.solve(x_def, cfg.function_tol)
+        else:
+            res_f = solver.solve(x_def, cfg.function_tol, level=fine, pred_group=pred_group)
+        e1 = (x0.conj() * res_f.x).sum(-1)
+        with span("est.coarse"):
+            xc = restrict(x_def)
+            ones = torch.ones(x0.shape[0], dtype=torch.int32, device=x0.device)
+            if coarse == coarsest:
+                y, iters2, stalled = solver.coarsest_solve(xc), ones, res_f.stalled
+            elif coarse_dense_inv is not None:
+                y, iters2, stalled = xc @ coarse_dense_inv.T, ones, res_f.stalled
+            else:
+                res_c = solver.solve(xc, cfg.function_tol, level=coarse,
+                                     pred_group=pred_group)
+                y, iters2, stalled = res_c.x, res_c.iters, res_f.stalled | res_c.stalled
+            e = e1 - (x0.conj() * prolong(y)).sum(-1)
+        if not gather:
+            if rows_mesh is not None:
+                raise ValueError("a batch split over a mesh is gathered on the host")
+            return e, res_f.iters, iters2, coarse, stalled
+        es, it1, it2, stall = gather_rows(rows_mesh, cfg, e, res_f.iters, iters2, stalled)
+        return es, it1, it2, coarse, stall
 
 
 def _adaptive_sampling(solver: MGSolver, cfg: TraceConfig, defls, rough_trace,

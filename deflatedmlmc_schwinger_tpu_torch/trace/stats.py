@@ -7,7 +7,10 @@ host (RunningMoments) or as device scalars (DeviceMoments) so that the
 sampling loop reads only one small flag tensor per batch. The two sampling
 loops live here: ``sample_to_stop`` keeps the moments on the device, and
 ``sample_to_stop_host`` gathers every batch, which a checkpointed run needs
-(its state is saved after each batch).
+(its state is saved after each batch). ``sample_to_stop``'s host reads
+count under the sites ``sample.flags`` (the lagged flags of each batch) and
+``sample.end`` (the moments, iterations and stalled rows at the loop's end)
+in utils/timer.py ``host_reads``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read
 
 
 @dataclasses.dataclass
@@ -216,12 +221,18 @@ def sample_to_stop(step: Callable[[int], tuple], cfg, tol_target: float, where: 
         inflight.append((start, HostCopy(flag)))
         if len(inflight) > 2:
             seen, pending = inflight.pop(0)
-            stop, nstall = pending.tolist()
+            stop, nstall = host_read("sample.flags", pending.tolist)
             check_stalled(nstall, seen, cfg.max_stalled_frac, where)
             if stopper(bool(stop), seen):
                 break
-    nstall = int(stall_acc.item())
+    moments, iters, nstall = host_read("sample.end", _loop_end, dm, stall_acc)
     check_stalled(nstall, start, cfg.max_stalled_frac, where)
+    return moments, iters, nstall
+
+
+def _loop_end(dm: DeviceMoments, stall_acc: torch.Tensor):
+    """The sampling loop's host numbers: (moments, iterations, stalled rows)."""
+    nstall = int(stall_acc.item())
     return device_moments_to_host(dm), int(dm.iters.item()), nstall
 
 

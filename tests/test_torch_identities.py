@@ -298,8 +298,10 @@ def test_phase_timer_reset_and_text_match_jax():
     assert port.counts == ref.counts == {"sampling": 2, "mg_setup": 1}
     assert str(port) == str(ref)
     assert "sampling : 1.2500 s (2 calls)" in str(port)
+    # no counted host read in these phases: nothing is printed beside them
+    assert port.host_read == {"sampling": 0.0, "mg_setup": 0.0}
     port.reset()
     ref.reset()
-    assert not port.totals and not port.counts and not port.transport
+    assert not port.totals and not port.counts and not port.transport and not port.host_read
     assert str(port) == str(ref) == ("\nTimings specific to computations:\n"
                                      " -- accumulated time : 0.0000 s")

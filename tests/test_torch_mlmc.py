@@ -240,7 +240,10 @@ def test_mlmc_flagship_pattern_matches_jax(built, solvers, monkeypatch, schedule
     assert res["results"][2]["level_complexity"] == 256.0 ** 3
     assert ref["results"][2]["level_complexity"] == 256.0 ** 3 + 64.0 ** 3
     out = json.loads(result_to_json(cfg, res, "mlmc"))
-    assert set(out) == set(json.loads(jax_result_to_json(jcfg, ref, "mlmc"))) | {"std_dev"}
+    assert set(out) == (set(json.loads(jax_result_to_json(jcfg, ref, "mlmc")))
+                        | {"std_dev", "host_read_seconds"})
+    assert set(out["host_read_seconds"]) == set(out["phase_seconds"])
+    assert out["host_read_seconds"]["sampling"] > 0     # the sampling loop's reads
 
 
 def test_mlmc_iterative_coarse_solves_match_jax(built, solvers, monkeypatch):

@@ -74,6 +74,11 @@ def test_two_rank_estimator_bit_identical(two_ranks):
     assert r0["backend"] == "gloo"
     # rank 0 built the hierarchy and the others received it
     assert r0["phase_seconds"]["mg_setup"] > 0 and r1["transport_seconds"]["sampling"] > 0
+    # host reads are counted per phase beside transport; over a mesh the loop
+    # predicates are any-reduced in transport, not read on one rank
+    for r in (r0, r1):
+        assert set(r["host_read_seconds"]) == set(r["phase_seconds"])
+        assert all(0 <= s <= r["phase_seconds"][k] for k, s in r["host_read_seconds"].items())
     assert r0["kernel_launches"] == {"stencil_matvec": 0, "stencil_residual": 0,
                                      "stencil_poly_smooth": 0}      # CPU ranks: plain versions
 
