@@ -28,6 +28,7 @@ import torch
 import devtrace
 import gauge
 import reference
+import spantrace
 import stats
 from window import Window
 
@@ -91,7 +92,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
              t_start: float, trace_dir: str, log=print) -> dict:
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
     from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator
-    from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer
+    from deflatedmlmc_schwinger_tpu_torch.utils.timer import PhaseTimer, host_read_totals
 
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -112,7 +113,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     win.choose_checked(nchk, int(seed), seconds, t_batch)
     setup_s = time.perf_counter() - t_start
 
+    reads0 = host_read_totals()
     win.run(seconds, t_batch)
+    reads1 = host_read_totals()
     batch_s = win.batch_seconds()
     es, batch_iters, iters_total, stalled = win.host_arrays()
     N = int(es.size)
@@ -123,7 +126,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     target = stats.stop_target(cfg.stop_safety, cfg.trace_tol, trace_abs, est.tol_factor())
     window = dict(samples=N, seconds=win.seconds, batch_s=batch_s, batch_iters=batch_iters,
                   iters_total=iters_total, stalled=stalled, variance=variance,
-                  trace_abs=trace_abs, target=target, samples_per_s=rate)
+                  trace_abs=trace_abs, target=target, samples_per_s=rate,
+                  host_reads={k: reads1[k] - reads0[k] for k in reads1})
     log(f"[window] {N} samples in {win.seconds:.3f} s, {len(batch_s)} batches, "
         f"trace {trace_est:.6f}, dev^2 {variance:.6g}, "
         f"target {target:.6g}, stalled {stalled}")
@@ -205,9 +209,10 @@ def traced_stretch(win: Window, sk, batches: int, trace_dir: str) -> Optional[Di
     the device's work alone, with the stencil kernels' calls recorded (busy
     and idle time, device time by kernel, device operations), then with
     the host's operators too, for the labels of the idle gaps (the host
-    operators' recording lengthens the gaps). Returns the first reading
-    with the second's ``idle_by`` and the first stretch's batches, outer
-    iterations and kernel calls."""
+    operators' recording lengthens the gaps). Then the span pass
+    (benchmark/spantrace.py) over ``batches`` more. Returns the first
+    reading with the second's ``idle_by``, the first stretch's batches,
+    outer iterations and kernel calls, and the span pass under ``spans``."""
     calls: List[tuple] = []
     devtrace.profile_stretch(lambda: win.chunk(1), trace_dir, host=False)
     win.reset()
@@ -219,4 +224,5 @@ def traced_stretch(win: Window, sk, batches: int, trace_dir: str) -> Optional[Di
                 outer_iters=int(sum(int(i.max()) for i in win.iters)))
     labelled = devtrace.profile_stretch(lambda: win.chunk(batches), trace_dir, host=True)
     read["idle_by"] = labelled.get("idle_by", {})
+    read["spans"] = spantrace.span_pass(win, batches, trace_dir)
     return read

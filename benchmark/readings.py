@@ -90,14 +90,15 @@ def readings(spec, name, nseeds, ncontrol, first_seed, device, out=None):
         win.choose_checked(nchk, seed, 0.0, 1.0)
         win.chunk(nb)
         es = win.host_arrays()[0]
-        _, out = core.checked_outputs(win, es)
-        out.update(Z=reference.probe_rows(seed, out["samples"], out["X"].shape[1], device),
-                   tr1=state["tr1"])
-        got = reference.judge(ref, out, names)
+        _, outputs = core.checked_outputs(win, es)
+        outputs.update(Z=reference.probe_rows(seed, outputs["samples"], outputs["X"].shape[1],
+                                              device),
+                       tr1=state["tr1"])
+        got = reference.judge(ref, outputs, names)
         rows["program"].append(dict(seed=seed, **got))
         print(f"[program] seed {seed}: {got}", flush=True)
         if i < ncontrol:
-            Zs.append((seed, out["Z"]))
+            Zs.append((seed, outputs["Z"]))
     del win, est, op
     if device.type == "cuda":
         torch.cuda.empty_cache()

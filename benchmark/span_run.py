@@ -9,9 +9,10 @@ JSON line; the span pass's two tables go to standard error.
 The metrics are those of benchmark/metrics/ named in ``METRICS``, read from
 a context shaped as run.py's: the window's ``host_reads`` (reads and seconds
 blocked during ``Window.run``) and the pass under ``trace["spans"]``.
-benchmark/run.py reports them once benchmark/core.py takes the counters
-around ``win.run`` and calls ``spantrace.span_pass`` after its traced
-stretch. Exit codes as run.py's: 2 without a usable card.
+benchmark/run.py with ``--trace 1`` reports the same metrics; this script
+adds the reads per site and the pass's tables, and
+bench_torch/graph_window.py builds on it. Exit codes as run.py's: 2 without
+a usable card.
 """
 
 from __future__ import annotations

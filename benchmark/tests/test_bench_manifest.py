@@ -111,28 +111,31 @@ UPSTREAM_KEYS = ("trace_tol", "max_nr_levels", "coarsest_level_directly", "accur
                  "test_vectors_type", "function_tol", "mass", "matrix")
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
-def test_configuration_lists_every_departure_from_its_source(config):
+def check_configuration(entry: dict, data: dict) -> None:
     """The file holds the configuration as it is run: the program's profile
-    of the same name on the generated field. ``reduced`` lists every key in
-    which it departs from the upstream set that ``source`` names, each with
-    the upstream value and the reason; every other upstream key is as
-    upstream has it."""
+    of the same name, with the field and mass of the generated operator in
+    place of the profile's where they differ. ``reduced`` lists every key in
+    which it departs from the upstream set that ``source`` names
+    (TraceConfig's defaults are its schwinger128 values), each with the
+    upstream value and the reason; every other upstream key is as upstream
+    has it."""
     import core
     from deflatedmlmc_schwinger_tpu_torch.config import TraceConfig
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
 
-    entry = next(c for c in MANIFEST["configs"] if c["name"] == config)
     assert entry["file"].startswith("benchmark/configs/")
-    data = json.loads((ROOT / entry["file"]).read_text())
     assert data["source"] == entry["source"]
     assert data["reduced"] == entry["reduced"] == list(data["departures"])
     assert len(entry["reduced"]) <= 16
     run = core.trace_config(data["trace_config"])
     profile = set_params(data["profile"])
+    op = data["operator"]
+    generated = f"generated:{op['nx']}x{op['nt']}:beta={op['beta']}:seed={op['field_seed']}"
+    assert run.matrix == generated
+    assert run.mass == op["mass"] and tuple(run.latt_dims) == (op["nx"], op["nt"])
     differ = {f.name for f in dataclasses.fields(run)
               if getattr(run, f.name) != getattr(profile, f.name)}
-    assert differ == {"matrix", "mass"}
+    assert differ <= {"matrix", "mass"}
     upstream = TraceConfig()
     for key in entry["reduced"]:
         assert getattr(run, key) != getattr(upstream, key), key
@@ -140,9 +143,34 @@ def test_configuration_lists_every_departure_from_its_source(config):
     for key in UPSTREAM_KEYS:
         if key not in entry["reduced"]:
             assert getattr(run, key) == getattr(upstream, key), key
-    op = data["operator"]
-    assert run.matrix == f"generated:{op['nx']}x{op['nt']}:beta={op['beta']}:seed={op['field_seed']}"
-    assert run.mass == op["mass"] and tuple(run.latt_dims) == (op["nx"], op["nt"])
+
+
+def _configuration(name: str):
+    entry = next(c for c in MANIFEST["configs"] if c["name"] == name)
+    return entry, json.loads((ROOT / entry["file"]).read_text())
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
+def test_configuration_lists_every_departure_from_its_source(config):
+    check_configuration(*_configuration(config))
+
+
+@pytest.mark.parametrize("edit", ["function_tol", "solver.smooth_iters", "unlisted"])
+def test_an_edited_configuration_fails_the_check(edit):
+    """schwinger128 with one field changed from its profile, or with a
+    departure from upstream taken out of ``reduced``, is refused."""
+    entry, data = _configuration("schwinger128")
+    entry, tc = dict(entry), data["trace_config"]
+    if edit == "function_tol":
+        tc["function_tol"] = 1e-3
+    elif edit == "solver.smooth_iters":
+        tc["solver"]["smooth_iters"] = 8
+    else:
+        entry["reduced"] = [k for k in entry["reduced"] if k != "nr_deflat_vctrs"]
+        data["reduced"] = list(entry["reduced"])
+        del data["departures"]["nr_deflat_vctrs"]
+    with pytest.raises(AssertionError):
+        check_configuration(entry, data)
 
 
 def test_gauge_copy_matches_the_program_generator():

@@ -2,11 +2,13 @@
 metrics' readers against hand-worked cases: a synthetic chrome trace with
 nested program spans, CUDA runtime and driver-API launches linked to their device
 operations by correlation ids, and idle gaps; a given window context for the
-host counters; and the whole span run of each cell on the CPU at 32^2."""
+host counters; and, for each cell on the CPU at 32^2, the whole span run
+(benchmark/span_run.py) and a whole traced run (core.run_cell)."""
 
 from __future__ import annotations
 
 import json
+import time
 
 import pytest
 import torch
@@ -17,6 +19,9 @@ import spantrace
 from conftest import ROOT, small_spec
 
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+HOST_METRICS = ("host.syncs_per_iter", "host.busy_ms_per_iter")
+SPAN_METRICS = ("fgmres.own_ms_per_batch", "vcycle.fine_ms_per_batch",
+                "vcycle.coarse_ms_per_batch", "est.own_ms_per_batch")
 
 
 def _x(cat, name, ts, dur, tid=1, **args):
@@ -122,7 +127,7 @@ def test_group_of_a_span_stack():
 def test_span_metrics_read_the_pass(tmp_path):
     sp = dict(spantrace.read_spans(_trace(tmp_path)), batches=2, outer_iters=3)
     ctx = dict(window={}, phases={}, trace=dict(spans=sp))
-    got = {m: core.load_metric(m).read(ctx) for m in span_run.METRICS[2:]}
+    got = {m: core.load_metric(m).read(ctx) for m in SPAN_METRICS}
     assert got == pytest.approx({"fgmres.own_ms_per_batch": 31e-3 / 2,
                                  "vcycle.fine_ms_per_batch": 20e-3 / 2,
                                  "vcycle.coarse_ms_per_batch": 15e-3 / 2,
@@ -132,7 +137,7 @@ def test_span_metrics_read_the_pass(tmp_path):
     # no span pass, or one without device work (a parent without spans): no reading
     for trace in (None, {}, dict(spans={}), dict(spans=dict(sp, device_ops=0))):
         ctx = dict(window={}, phases={}, trace=trace)
-        assert all(core.load_metric(m).read(ctx) is None for m in span_run.METRICS[2:])
+        assert all(core.load_metric(m).read(ctx) is None for m in SPAN_METRICS)
 
 
 def test_host_metrics_from_the_window_context():
@@ -164,4 +169,48 @@ def test_span_run_on_the_cpu(cell, tmp_path):
     assert m["host.syncs_per_iter"] == pytest.approx(w["host_reads"]["reads"] / iters)
     assert 0 < m["host.busy_ms_per_iter"] < 1e3 * w["seconds"] / iters
     assert out["spans"]["device_ops"] == 0 and out["spans"]["batches"] > 0
-    assert all(m[k] is None for k in span_run.METRICS[2:])
+    assert all(m[k] is None for k in SPAN_METRICS)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_run_cell_on_the_cpu(cell, tmp_path, monkeypatch):
+    """A whole traced run of a cell at 32^2 on the CPU (core.run_cell with
+    ``trace``): the host metrics are the window's host reads, counted per
+    site around ``Window.run``, per outer iteration; the span pass ran (no
+    device work on the CPU, so no span metric)."""
+    import window
+    from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_reads
+
+    torch.set_num_threads(2)
+    seen, passes = {}, []
+    run, span_pass = window.Window.run, spantrace.span_pass
+
+    def counted_run(self, *args, **kw):
+        before = {site: list(c) for site, c in host_reads.items()}
+        run(self, *args, **kw)
+        seen.update(seconds=self.seconds, iters=sum(self.host_arrays()[1]),
+                    sites={site: c[0] - before.get(site, [0, 0])[0]
+                           for site, c in host_reads.items()})
+
+    def recorded_pass(*args, **kw):
+        passes.append(span_pass(*args, **kw))
+        return passes[-1]
+
+    monkeypatch.setattr(window.Window, "run", counted_run)
+    monkeypatch.setattr(spantrace, "span_pass", recorded_pass)
+    spec = small_spec(cell)
+    r = core.run_cell(spec, 12345678901, 1.0, True, "cpu", time.perf_counter(), str(tmp_path),
+                      log=lambda *a: None)
+    assert r["correct"], r["checks"]
+    m = {k: v["value"] for k, v in r["metrics"].items()}
+    assert set(HOST_METRICS) <= set(m)
+    sites, iters = seen["sites"], seen["iters"]
+    assert set(sites) >= {"fgmres.cycle", "fgmres.step", "fgmres.stall", "sample.flags",
+                          "sample.end"}
+    # one predicate read per Arnoldi step at least, and one more per solve
+    assert sites["fgmres.step"] >= iters
+    assert m["host.syncs_per_iter"] == pytest.approx(sum(sites.values()) / iters)
+    assert 0 < m["host.busy_ms_per_iter"] < 1e3 * seen["seconds"] / iters
+    assert len(passes) == 1 and passes[0]["device_ops"] == 0
+    assert passes[0]["batches"] == int(spec["traffic"]["trace_batches"])
+    assert not set(SPAN_METRICS) & set(m)
