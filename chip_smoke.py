@@ -30,6 +30,15 @@
    on the plans other than whole aligned rows: an odd-T complex64 lattice,
    a misaligned contiguous view, a lattice of fewer rows than a tile's
    halo, and column tiles (random seeded coefficients).
+   Then K4, the coarse levels' block-sparse kernel (ops/block_kernels.py),
+   on the 128^2 flagship hierarchy built on the card: at the level-1 and
+   level-2 shapes (128 probes, complex64) its matvec, residual and depth-16
+   polynomial smoothing (with and without the residual) against its plain
+   version to 1e-5 relative, and on the same operators in complex128 (32
+   probes) to 1e-12; each timed by CUDA-graph replay beside the einsum path
+   it replaced (gather, batched product and elementwise passes), with the
+   bound of one smoother root (cur and x in and out and the nonzero values
+   at HBM_BYTES_PER_S, or the nonzero flops at FP32_FLOPS_PER_S).
 3. Runs gateway.G301 (deflated Hutchinson, generated 256^2 lattice) on
    cuda:0 to its stopping rule, checks that every kernel was launched on
    that path, that no more probe rows stalled than the configuration
@@ -550,6 +559,116 @@ def check_kernels(device) -> dict:
     return results
 
 
+def _k4_root_bound(layout, B: int, nonzeros: int, itemsize: int):
+    """(bound ms, bound by) of one K4 smoother root at batch B: cur and x
+    read, x and cur' written, each nonzero value once; 8 real flops per
+    nonzero complex multiply-add."""
+    n = layout.rows * layout.size
+    t_bytes = 1e3 * (4 * B * n + nonzeros) * itemsize / HBM_BYTES_PER_S
+    peak = FP32_FLOPS_PER_S if itemsize == 8 else FP64_FLOPS_PER_S
+    t_flops = 1e3 * 8 * nonzeros * B / peak
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def check_block_kernels(device) -> dict:
+    """Phase 2, K4: on the coarse levels 1 and 2 of the 128^2 flagship
+    hierarchy (built on the card), K4's matvec, residual and depth-16
+    smoothing against the plain version (B = 128, complex64, TOL_C64; the
+    same operators in complex128 with 32 probes, TOL_C128), then timed by
+    CUDA-graph replay beside the einsum path it replaced. Returns
+    {"level 1": {...}, "level 2": {...}}: per level the relative errors,
+    one root's device ms and the einsum step's, the smoothing's and the
+    matvec's both ways, the root's bound and its share."""
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
+    from deflatedmlmc_schwinger_tpu_torch.mg import setup_hierarchy
+    from deflatedmlmc_schwinger_tpu_torch.mg.cycle import poly_smoother
+    from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import BlockStencilOperator, pack_grouped
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
+
+    cfg = flagship_cfg()
+    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims, dtype=cfg.dtype,
+                          device=device)
+    hier = setup_hierarchy(op, cfg)
+    gen = torch.Generator(device=device).manual_seed(4321)
+    out = {}
+    for lvl in (1, 2):
+        bop = hier.levels[lvl].op
+        roots = hier.poly_roots[lvl]
+        lay = bop.layout
+        # the grouped band K4 replaced, packed on the host: a card hierarchy
+        # carries none
+        if bop.gmat is not None:
+            raise RuntimeError(f"K4 level {lvl}: the card's hierarchy holds a grouped band")
+        band = pack_grouped(BlockStencilOperator(bop.blocks.cpu(), bop.offsets)).to(device)
+        if band.gmat is None:
+            raise RuntimeError(f"K4 level {lvl}: the einsum path packs no grouped band")
+        B = cfg.probe_batch
+        v = _randn((B, bop.n), cfg.dtype, gen, device)
+        w = _randn((B, bop.n), cfg.dtype, gen, device)
+        c128 = BlockStencilOperator(bop.blocks.to(torch.complex128), bop.offsets).layout
+        v2, w2 = v[:32].to(torch.complex128), w[:32].to(torch.complex128)
+        forms = {
+            "matvec": (lambda L, a, b: bk.block_matvec(L, a),
+                       lambda L, a, b: bk.block_matvec_plain(L, a)),
+            "residual": (lambda L, a, b: bk.block_residual(L, b, a),
+                         lambda L, a, b: bk.block_residual_plain(L, b, a)),
+            "smoothing": (lambda L, a, b: torch.cat(bk.block_poly_smooth(L, a, roots, True)),
+                          lambda L, a, b: torch.cat(
+                              bk.block_poly_smooth_plain(L, a, roots, True))),
+            "smoothing (no residual)": (
+                lambda L, a, b: bk.block_poly_smooth(L, a, roots)[0],
+                lambda L, a, b: bk.block_poly_smooth_plain(L, a, roots)[0]),
+        }
+        res = {}
+        for name, (kern, plain) in forms.items():
+            for L, a, b, tol, tag in ((lay, v, w, TOL_C64, "c64"),
+                                      (c128, v2, w2, TOL_C128, "c128")):
+                got, ref = kern(L, a, b), plain(L, a, b)
+                torch.cuda.synchronize()
+                err = _rel_err(got, ref)
+                if not torch.isfinite(got).all() or err > tol:
+                    raise RuntimeError(f"K4 level {lvl} {name} {tag}: rel err {err:.3e} > {tol:g}")
+                res[f"{name} {tag} rel_err"] = err
+        inv = 1.0 / complex(roots[0])
+        x0, cur1 = torch.empty_like(v), torch.empty_like(v)
+
+        def k4_root():
+            bk._launch("K4", lay, "root", B, v, x=x0, out=cur1, inv=inv)
+
+        def einsum_root():
+            step = v * inv
+            return w + step, v - band.einsum_matvec(step)
+
+        turns = [_graph_ms(f) for f in (k4_root, einsum_root, einsum_root, k4_root)]
+        ms, einsum_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        nonzeros = int((bop.blocks != 0).sum())
+        bound_ms, bound_by = _k4_root_bound(lay, B, nonzeros, v.element_size())
+        res.update(
+            shape=f"B={B} n={bop.n} blocks={tuple(bop.blocks.shape)} s={lay.size}",
+            nonzeros=nonzeros, stored=int(lay.vals.numel()), ms=ms, einsum_ms=einsum_ms,
+            bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+            smoothing_ms=_graph_ms(lambda: bk.block_poly_smooth(lay, v, roots, True), reps=10),
+            einsum_smoothing_ms=_graph_ms(
+                lambda: poly_smoother(band.einsum_matvec, v, roots, with_residual=True),
+                reps=10),
+            matvec_ms=_graph_ms(lambda: bk.block_matvec(lay, v)),
+            einsum_matvec_ms=_graph_ms(lambda: band.einsum_matvec(v)))
+        print(f"[K4 level {lvl}] {res['shape']}, {nonzeros} nonzeros of {res['stored']} "
+              f"stored; rel err " + ", ".join(f"{k[:-8]} {e:.3e}" for k, e in res.items()
+                                            if k.endswith("rel_err"))
+              + f"; root {turns[0]:.5f}/{turns[3]:.5f} ms, einsum root {turns[1]:.5f}/"
+              f"{turns[2]:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}), {res['share']:.1%} "
+              f"of bound; depth-16 smoothing {res['smoothing_ms']:.5f} ms, einsum "
+              f"{res['einsum_smoothing_ms']:.5f} ms; matvec {res['matvec_ms']:.5f} ms, "
+              f"einsum {res['einsum_matvec_ms']:.5f} ms (device ms, CUDA-graph replay)")
+        out[f"level {lvl}"] = res
+    del hier, op
+    torch.cuda.empty_cache()
+    return out
+
+
 def flagship_cfg():
     """The JAX package's schwinger128 profile, field for field, on the
     generated flagship operator."""
@@ -576,24 +695,38 @@ def _no_yardstick_launch(label: str, counts: dict) -> None:
         raise RuntimeError(f"{label} launched yardstick kernels {launched}")
 
 
+def _require_k4(label: str, cfg, k4_counts: dict) -> None:
+    """The coarse levels' residuals are K4's, and their smoothing: the
+    polynomial smoother's roots, or the GMRES smoother's matvecs."""
+    used = ("block_residual",
+            "block_poly_smooth" if cfg.solver.smoother == "poly" else "block_matvec")
+    missing = [n for n in used if k4_counts[n] <= 0]
+    if missing:
+        raise RuntimeError(f"{label} did not launch K4's {missing}: {k4_counts}")
+
+
 def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
     """A k = 0 Hutchinson path on a generated lattice (G301, G302, and the
     256^2 profile on the device setup backend) through ``entry(device=...)``,
     held to the JAX package's recorded trace of that configuration. Returns
-    dict(counts, result, wall, peak_gb)."""
+    dict(counts, result, wall, peak_gb); ``counts["K4"]`` are K4's launches.
+    """
     import math
 
     import torch
 
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
+    bk.reset_launch_counts()
     t0 = time.perf_counter()
     result = entry(device=device)
     wall = time.perf_counter() - t0
     counts = sk.launch_counts()
+    k4_counts = bk.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phases = dict(result["timer"].totals)
     tr = complex(result["trace"])
@@ -607,12 +740,13 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
         f"{k}={phases.get(k, 0.0):.4f}" for k in ("mg_setup", "defl_setup",
                                                    "rough_trace", "sampling")))
     print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the tiled "
-          f"kernel, several roots each)")
+          f"kernel, several roots each); K4 {k4_counts}")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError(f"{label} produced a non-finite result")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
+    _require_k4(label, cfg, k4_counts)
     _no_yardstick_launch(label, sk.yardstick_counts())
     solved = result["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
     if result["stalled_rows"] > cfg.max_stalled_frac * solved:
@@ -620,7 +754,7 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
     if abs(tr - reference) > cfg.trace_tol * reference:
         raise RuntimeError(f"{label} trace {tr} is not within {cfg.trace_tol:.0%} "
                            f"of {reference}")
-    return dict(counts=counts, result=result, wall=wall, peak_gb=peak_gb)
+    return dict(counts=counts | {"K4": k4_counts}, result=result, wall=wall, peak_gb=peak_gb)
 
 
 def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
@@ -632,14 +766,17 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
     import math
 
     from deflatedmlmc_schwinger_tpu_torch import examples
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
     entry = examples.EXAMPLE_002 if mlmc else examples.EXAMPLE_001
     sk.reset_launch_counts()
+    bk.reset_launch_counts()
     t0 = time.perf_counter()
     result = entry(cfg, device=device)
     wall = time.perf_counter() - t0
     counts = sk.launch_counts()
+    k4_counts = bk.launch_counts()
     phases = dict(result["timer"].totals)
     tr = complex(result["trace"])
     k = int(cfg.nr_deflat_vctrs)
@@ -671,9 +808,10 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
           f"{max(abs(defl.values)):.4g}], tr1 {defl.tr1:.6f}")
     print(f"[{label}] phase seconds " + " ".join(f"{n}={t:.4f}" for n, t in phases.items()))
     print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the "
-          f"tiled kernel, several roots each)")
+          f"tiled kernel, several roots each); K4 {k4_counts}")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError(f"{label} produced a non-finite result")
+    _require_k4(label, cfg, k4_counts)
     if len(defl.values) != k or not all(math.isfinite(x) for x in defl.values):
         raise RuntimeError(f"{label}: the deflation basis has no {k} finite eigenvalues")
     missing = [n for n in kernels_of_path if counts[n] <= 0]
@@ -682,7 +820,7 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
     _no_yardstick_launch(label, sk.yardstick_counts())
     if stalled > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {stalled} stalled rows of {solved}")
-    return result, counts, wall, stderr
+    return result, counts | {"K4": k4_counts}, wall, stderr
 
 
 def check_oracle(label: str, tr: complex, stderr: float, exact: complex) -> None:
@@ -897,6 +1035,7 @@ def rank_sharded_solve(hier_path: str) -> dict:
 
     from deflatedmlmc_schwinger_tpu_torch.config import pin_full_precision_matmuls
     from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
     from deflatedmlmc_schwinger_tpu_torch.parallel import ShardedMGSolver, make_mesh
     from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import (
@@ -913,6 +1052,9 @@ def rank_sharded_solve(hier_path: str) -> dict:
     b = _g302_probes(cfg, op)
     mesh = make_mesh((2, 2), ("samples", "x"))
     ss = ShardedMGSolver(hier, mesh, cfg.solver)
+    # K4's wrappers count their calls, and the coarse levels replay as a CUDA
+    # graph after the warm-up captured them: count K4 over both solves
+    bk.reset_launch_counts()
     ss.solve(b, cfg.function_tol)                     # warm-up
     sk.reset_launch_counts()
     reset_transport_stats()
@@ -922,6 +1064,7 @@ def rank_sharded_solve(hier_path: str) -> dict:
     torch.cuda.synchronize()
     sharded_s = time.perf_counter() - t0
     counts, moved = sk.launch_counts(), dict(transport_stats)
+    counts["K4"] = bk.launch_counts()
     yardsticks = sk.yardstick_counts()
     solver = MGSolver(hier, cfg.solver)
     solver.solve(b, cfg.function_tol)
@@ -1023,8 +1166,9 @@ def run_g302_ranks(label: str, devices: int, x_shards: int, cfg, reference) -> d
           f"sampling: {phases['sampling'] / (r['nr_ests'] / cfg.probe_batch):.4f} s per batch "
           f"of {cfg.probe_batch}, {moved['sampling'] / phases['sampling']:.1%} of it in "
           f"transport (waits for the other ranks included)")
-    print(f"[{label}] rank 0 kernel launches {counts}")
+    print(f"[{label}] rank 0 kernel launches {counts}; K4 {r['block_launches']}")
     _no_yardstick_launch(f"{label} rank 0", r["yardstick_launches"])
+    _require_k4(f"{label} rank 0", cfg, r["block_launches"])
     if not r["ranks_agree"]:
         raise RuntimeError(f"{label}: the ranks returned different results")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, r["std_dev"])):
@@ -1045,7 +1189,7 @@ def run_g302_ranks(label: str, devices: int, x_shards: int, cfg, reference) -> d
         raise RuntimeError(f"{label}: rank 0 did not launch {missing}")
     if x_shards > 1 and counts["stencil_poly_smooth"]:
         raise RuntimeError(f"{label} launched K3, which the lattice-sharded path does not use")
-    return dict(counts=counts, wall=wall, result=r)
+    return dict(counts=counts | {"K4": r["block_launches"]}, wall=wall, result=r)
 
 
 def check_parallel(device) -> dict:
@@ -1109,6 +1253,7 @@ def check_parallel(device) -> dict:
             raise RuntimeError(f"sharded solve, rank {r['rank']}: {r}")
         if r["counts"]["stencil_matvec"] <= 0 or r["counts"]["stencil_residual"] <= 0:
             raise RuntimeError(f"sharded solve, rank {r['rank']} launched {r['counts']}")
+        _require_k4(f"sharded solve, rank {r['rank']}", cfg, r["counts"]["K4"])
 
     want = RunningMoments()
     want.update_batch(_moment_samples())
@@ -1161,19 +1306,21 @@ def check_complex64_policies(device, exact16: complex) -> dict:
       1e-4) with 0 and 2 float64 refinement steps, each tr1 against
       tr(U^H A^-1 U) from the complex128 inverse of the complex64-rounded
       operator; 2 steps must cut the error at least tenfold.
-    Returns the kernel launches of the phase."""
+    Returns the kernel launches of the phase (K4's under "K4")."""
     import numpy as np
     import torch
 
     from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig, TraceConfig
     from deflatedmlmc_schwinger_tpu_torch.io import load_operator
     from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, setup_hierarchy
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
     from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson, mlmc
     from deflatedmlmc_schwinger_tpu_torch.trace.deflation import hutchinson_deflation
 
     label = "c64 policies"
     sk.reset_launch_counts()
+    bk.reset_launch_counts()
     t0 = time.perf_counter()
     ops = {dt: load_operator(SMALL_MATRIX, SMALL_MASS, dtype=dt, device=device)[0]
            for dt in (torch.complex64, torch.complex128)}
@@ -1250,13 +1397,15 @@ def check_complex64_policies(device, exact16: complex) -> dict:
         raise RuntimeError(f"{label}: refinement cut the tr1 error from {errs[0]:.3e} to "
                            f"{errs[2]:.3e}, less than tenfold")
 
-    counts = sk.launch_counts()
-    print(f"[{label}] kernel launches {counts}; phase {time.perf_counter() - t0:.2f} s")
+    counts, k4_counts = sk.launch_counts(), bk.launch_counts()
+    print(f"[{label}] kernel launches {counts}; K4 {k4_counts}; phase "
+          f"{time.perf_counter() - t0:.2f} s")
     missing = [k for k in ("stencil_matvec", "stencil_residual") if counts[k] <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
+    _require_k4(label, bias_cfg, k4_counts)
     _no_yardstick_launch(label, sk.yardstick_counts())
-    return counts
+    return counts | {"K4": k4_counts}
 
 
 def main() -> None:
@@ -1282,6 +1431,7 @@ def main() -> None:
     from deflatedmlmc_schwinger_tpu_torch import gateway
 
     kernels = check_kernels(device)
+    k4 = check_block_kernels(device)
     all_kernels = tuple(sk.launch_counts())
     counts = {}
     g301 = run_generated("G301", gateway.G301, gateway.set_params("schwinger256"),
@@ -1381,6 +1531,11 @@ def main() -> None:
                 for lbl, res in kernels.items() for k, v in res.items()
                 if k.startswith(name)}
         entries.append(entry)
+
+    entries.append(dict(
+        name="coarse_bsr", route="cuda", source=KERNEL_SOURCE, replaces=None,
+        launches_per_path={p: c["K4"] for p, c in counts.items() if "K4" in c},
+        shapes="G102 coarse levels", levels=k4))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

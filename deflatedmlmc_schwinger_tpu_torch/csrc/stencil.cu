@@ -11,6 +11,10 @@
 //                                            x = p(D) r per launch)
 //      poly_step        the earlier K3, one launch per root; kept as the
 //                       yardstick the tiled kernel is timed against
+// and, on the coarse levels, which have no TPU kernel:
+//   K4 coarse_bsr       block-sparse block stencil: y = A v, r = b - A x and
+//                       one root of the polynomial smoother per launch
+//                       (section "K4" below)
 //
 // Layout: complex tensors are interleaved (float2 / double2). Coefficients
 // C[a, b, k, x, t] have shape (2, 2, 5, X, T); vectors v[p, s, x, t] have
@@ -1022,6 +1026,200 @@ int launch_residual_per_site_on(const void* C, const void* b, const void* x, voi
   return launch_residual_per_site<V>(C, b, x, r, B, X, T, stream);
 }
 
+// ---- K4: the coarse levels' block stencils, block-sparse --------------------
+//
+// Replaces no TPU kernel: the JAX package leaves the coarse levels to XLA (a
+// gather and a batched matrix product over the grouped band of
+// mg/hierarchy.py pack_grouped). A coarse operator is a cyclic block stencil
+// whose (dc, dc) blocks are mostly exact zeros that the aggregation leaves:
+// at 128^2, 20.6% of level 1's stored entries are nonzero and 50% of level
+// 2's, so the grouped band multiplies 11.6x and 6.7x the entries it needs.
+// K4 reads the operator as block-sparse rows (ops/block_kernels.py
+// block_layout): the 2 x 2 sub-blocks that hold a nonzero entry, per row of
+// sub-blocks their column indices and values. On the H100 sub-blocks of 2
+// beat 1, 4 and 8 at both coarse levels of the 128^2 hierarchy (PERF.md), so
+// the kernel is built for 2 alone (coarse blocks are (2k, 2k)).
+//
+// Bound: at B = 128 a level-1 root moves cur and x in and x and cur' out
+// (4 x 8.4 MB in complex64) and 2.2 MB of nonzero values, 10.7 us at
+// 3.35 TB/s, against 4.1 us of nonzero arithmetic at 67 TFLOP/s; a level-2
+// root 2.7 us. Both are small enough that the L2 (50 MB) holds a level's
+// vectors between its launches, and the time goes to the loads: the
+// operator's values, re-read for every chunk of probes, and B probes'
+// inputs. So a thread owns one operator row for a chunk of kP probes and
+// loads its row's values once per sub-block for all kP; a warp is 32
+// consecutive rows, so that its stores and its reads of x, b and its own
+// cur are contiguous (256 bytes in complex64), and the 2 lanes of one
+// sub-block row read the same 2 inputs (one sector); the 8 warps of a block
+// take successive probe chunks of the same 32 rows, so the values reach a
+// block from L2 once and its other warps from L1. The kP sums stay in
+// registers and the products are fused multiply-adds (cfma) in full
+// float32 / float64.
+//
+// Forms (kMode), one launch each: y = A v; r = b - A x; one root of the
+// polynomial smoother, step = cur / theta, x = step on the first root else
+// x + step, and cur' = cur - A step, computed as cur - (1 / theta) (A cur);
+// and the last root without the application, x += cur / theta.
+
+constexpr int kBsrS = 2;      // sub-block size
+constexpr int kBsrWarps = 8;  // warps a block (4 and 16 within 3%, PERF.md)
+constexpr int kBsrMatvec = 0;
+constexpr int kBsrResidual = 1;
+constexpr int kBsrRoot = 2;
+constexpr int kBsrLast = 3;
+
+// Two consecutive elements, 16 bytes a load, through the read-only
+// (non-coherent) path: the values and `in`, which no thread of a launch
+// writes.
+template <typename V>
+__device__ __forceinline__ void load_pair(const V* __restrict__ p, V (&v)[kBsrS]) {
+  if constexpr (sizeof(V) == 8) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0].x = t.x;
+    v[0].y = t.y;
+    v[1].x = t.z;
+    v[1].y = t.w;
+  } else {
+    v[0] = __ldg(p);
+    v[1] = __ldg(p + 1);
+  }
+}
+
+// Vectors are (B, n), n = nbr * 2, C-contiguous. `in` is v (matvec), x
+// (residual) or cur (roots); `b` the right-hand side (residual); `x` the
+// smoother's iterate (roots); `out` y, r or cur'. Block (32, kBsrWarps):
+// thread (lane, warp) owns row r = blockIdx.x * 32 + lane (row r % 2 of
+// sub-block row r / 2) for probes p0 .. p0 + kP - 1, p0 = (blockIdx.y *
+// kBsrWarps + warp) * kP.
+template <typename V, int kP, int kMode>
+__global__ void __launch_bounds__(kBsrWarps * 32)
+coarse_bsr_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
+                  const V* __restrict__ vals, const V* __restrict__ in,
+                  const V* __restrict__ b, V* __restrict__ x, V* __restrict__ out,
+                  V inv, int first, int B, int nbr) {
+  constexpr int S = kBsrS;
+  const long long n = static_cast<long long>(nbr) * S;
+  const long long r = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
+  const int p0 = (blockIdx.y * kBsrWarps + threadIdx.y) * kP;
+  if (r >= n || p0 >= B) return;
+  const int np = min(kP, B - p0);
+  V acc[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) acc[j] = czero<V>();
+  if (kMode != kBsrLast) {
+    const int i = static_cast<int>(r / S);
+    const int a = static_cast<int>(r - static_cast<long long>(i) * S);
+    const V* vp = in + static_cast<long long>(p0) * n;
+    const int k1 = rowptr[i + 1];
+    for (int k = rowptr[i]; k < k1; ++k) {
+      V arow[S];
+      load_pair<V>(vals + (static_cast<long long>(k) * S + a) * S, arow);
+      const V* seg = vp + static_cast<long long>(cols[k]) * S;
+#pragma unroll
+      for (int j = 0; j < kP; ++j) {
+        if (j < np) {
+          V v[S];
+          load_pair<V>(seg + j * n, v);
+#pragma unroll
+          for (int c = 0; c < S; ++c) cfma(acc[j], arow[c], v[c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    if (j >= np) break;
+    const long long o = static_cast<long long>(p0 + j) * n + r;
+    if (kMode == kBsrMatvec) {
+      out[o] = acc[j];
+    } else if (kMode == kBsrResidual) {
+      V t = b[o];
+      t.x -= acc[j].x;
+      t.y -= acc[j].y;
+      out[o] = t;
+    } else {
+      const V c = in[o];
+      const V step = cmul(inv, c);
+      V xv = step;
+      if (!first) {
+        xv = x[o];
+        xv.x += step.x;
+        xv.y += step.y;
+      }
+      x[o] = xv;
+      if (kMode == kBsrRoot) {
+        V t = c;
+        cfms(t, inv, acc[j]);
+        out[o] = t;
+      }
+    }
+  }
+}
+
+template <typename V, int kP>
+int launch_bsr_p(int mode, dim3 grid, cudaStream_t s, const int* rowptr, const int* cols,
+                 const V* vals, const V* in, const V* b, V* x, V* out, V inv, int first,
+                 int B, int nbr) {
+  const dim3 threads(32, kBsrWarps);
+  switch (mode) {
+    case kBsrMatvec:
+      coarse_bsr_kernel<V, kP, kBsrMatvec><<<grid, threads, 0, s>>>(
+          rowptr, cols, vals, in, b, x, out, inv, first, B, nbr);
+      break;
+    case kBsrResidual:
+      coarse_bsr_kernel<V, kP, kBsrResidual><<<grid, threads, 0, s>>>(
+          rowptr, cols, vals, in, b, x, out, inv, first, B, nbr);
+      break;
+    case kBsrRoot:
+      coarse_bsr_kernel<V, kP, kBsrRoot><<<grid, threads, 0, s>>>(
+          rowptr, cols, vals, in, b, x, out, inv, first, B, nbr);
+      break;
+    default:
+      coarse_bsr_kernel<V, kP, kBsrLast><<<grid, threads, 0, s>>>(
+          rowptr, cols, vals, in, b, x, out, inv, first, B, nbr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `cfg`: mode, first, B, nbr, probes per thread, device.
+template <typename V>
+int launch_bsr(const void* rowptr, const void* cols, const void* vals, const void* in,
+               const void* b, void* x, void* out, double inv_re, double inv_im,
+               const int* cfg, void* stream) {
+  const int mode = cfg[0], first = cfg[1], B = cfg[2], nbr = cfg[3], probes = cfg[4],
+            dev = cfg[5];
+  if (B <= 0 || nbr <= 0) return 0;
+  const long long n = static_cast<long long>(nbr) * kBsrS;
+  const long long blocks = (n + 31) / 32;
+  const int chunks = (B + probes * kBsrWarps - 1) / (probes * kBsrWarps);
+  bool ok = mode >= kBsrMatvec && mode <= kBsrLast && (probes == 4 || probes == 8) &&
+            chunks <= 65535 && blocks <= 0x7fffffffLL && dev >= 0;
+  // 16-byte loads of two elements need 16-byte aligned values and inputs
+  ok = ok && !misaligned16(vals) && !misaligned16(in);
+  if (mode == kBsrResidual) ok = ok && b != nullptr && out != nullptr;
+  if (mode >= kBsrRoot) ok = ok && x != nullptr && (mode == kBsrLast || out != nullptr);
+  if (mode == kBsrMatvec) ok = ok && out != nullptr;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceScope scope;
+  const cudaError_t err = scope.enter(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  V v_inv;
+  v_inv.x = static_cast<decltype(v_inv.x)>(inv_re);
+  v_inv.y = static_cast<decltype(v_inv.y)>(inv_im);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* cp = static_cast<const int*>(cols);
+  const V* vv = static_cast<const V*>(vals);
+  const V* iv = static_cast<const V*>(in);
+  const V* bv = static_cast<const V*>(b);
+  V* xv = static_cast<V*>(x);
+  V* ov = static_cast<V*>(out);
+  return probes == 8
+             ? launch_bsr_p<V, 8>(mode, grid, s, rp, cp, vv, iv, bv, xv, ov, v_inv, first, B, nbr)
+             : launch_bsr_p<V, 4>(mode, grid, s, rp, cp, vv, iv, bv, xv, ov, v_inv, first, B, nbr);
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Every entry returns
@@ -1113,6 +1311,27 @@ int dmlmc_stencil_poly_tiled_c128(const void* C, const void* cur_in, void* x,
   return launch_poly_tiled<double2, 16, 32, 1>(C, cur_in, x, cur_out, inv_re_im,
                                                nroots, first, apply_last, B, X,
                                                T, stream);
+}
+
+// K4 (coarse_bsr_kernel): `cfg` is a host array of six ints, mode (0 y = A v,
+// 1 r = b - A x, 2 a root, 3 the last root without the application), first
+// root (0/1), B, rows of 2 x 2 sub-blocks, probes per thread (4 or 8) and the
+// device of the operands; inv_re, inv_im: 1 / theta of a
+// root. Unused pointers may be null.
+int dmlmc_stencil_coarse_bsr_c64(const void* rowptr, const void* cols,
+                                 const void* vals, const void* in, const void* b,
+                                 void* x, void* out, double inv_re, double inv_im,
+                                 const int* cfg, void* stream) {
+  return launch_bsr<float2>(rowptr, cols, vals, in, b, x, out, inv_re, inv_im, cfg,
+                            stream);
+}
+
+int dmlmc_stencil_coarse_bsr_c128(const void* rowptr, const void* cols,
+                                  const void* vals, const void* in, const void* b,
+                                  void* x, void* out, double inv_re, double inv_im,
+                                  const int* cfg, void* stream) {
+  return launch_bsr<double2>(rowptr, cols, vals, in, b, x, out, inv_re, inv_im, cfg,
+                             stream);
 }
 
 }  // extern "C"

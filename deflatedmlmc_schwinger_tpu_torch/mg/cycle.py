@@ -5,8 +5,10 @@ V-cycle: pre-smooth from a zero guess with the smoothed residual, restrict;
 dense precomputed inverse on the coarsest level; prolongate-correct,
 residual, post-smooth on the way up. Solves may start from any level. On a
 level-0 StencilOperator the polynomial smoother is kernel K3, the residual
-kernel K2 and every other application of D kernel K1; coarser levels run on
-their einsum/matmul matvecs.
+kernel K2 and every other application of D kernel K1. On a CUDA device a
+BlockStencilOperator level runs kernel K4 (ops/block_kernels.py): one
+launch per smoother root, one per residual, one per matvec; on the CPU it
+runs the einsum matvec and the plain recurrence.
 
 Two smoothers share one interface (``smooth``, ``smooth_residual``):
 ``PolySmoother`` (fixed GMRES residual polynomial, no inner products) and
@@ -15,9 +17,9 @@ Two smoothers share one interface (``smooth``, ``smooth_residual``):
 tested equal to the precond + matvec pair and not used by ``solve``.
 
 On a CUDA device the levels below the fine stencil level (a fixed sequence
-of a few hundred small einsum, gather and elementwise launches, with no host
-read) replay as one CUDA graph per input shape (``CycleGraphs``); the fine
-level's kernels stay eager.
+of K4 launches and small einsum launches, with no host read) replay as one
+CUDA graph per input shape (``CycleGraphs``); the fine level's kernels stay
+eager.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import numpy as np
 import torch
 
 from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig
-from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import Hierarchy
-from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels
+from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import BlockStencilOperator, Hierarchy
+from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels, stencil_kernels
 from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator
 from deflatedmlmc_schwinger_tpu_torch.solvers.eigs import _apply_cols
 from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import (
@@ -154,17 +156,26 @@ def poly_smoother(matvec: Callable, r: torch.Tensor, roots: Sequence[complex],
     return x
 
 
+def _k4(op, t: torch.Tensor) -> bool:
+    """A block stencil level on a CUDA device: kernel K4's case."""
+    return t.is_cuda and isinstance(op, BlockStencilOperator)
+
+
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """r = b - A x; kernel K2 on the fine stencil level."""
+    """r = b - A x; kernel K2 on the fine stencil level, K4 on a block
+    stencil level on a CUDA device."""
     if isinstance(op, StencilOperator):
         return stencil_kernels.stencil_residual(
             op.coeffs, b.contiguous(), x.contiguous(), op.nx, op.nt)
+    if _k4(op, b):
+        return block_kernels.block_residual(op.layout, b, x)
     return b - op.matvec(x)
 
 
 class PolySmoother:
     """GMRES-residual-polynomial smoother (zero inner products); kernel K3
-    on the fine stencil level, the plain recurrence elsewhere."""
+    on the fine stencil level, K4 (one launch per root) on a block stencil
+    level on a CUDA device, the plain recurrence elsewhere."""
 
     def __init__(self, roots: Sequence[complex]):
         self.roots = tuple(complex(t) for t in roots)
@@ -175,6 +186,8 @@ class PolySmoother:
                 op.coeffs, r.contiguous(), self.roots, op.nx, op.nt,
                 with_residual=False)
             return x
+        if _k4(op, r):
+            return block_kernels.block_poly_smooth(op.layout, r, self.roots)[0]
         return poly_smoother(op.matvec, r, self.roots)
 
     def smooth_residual(self, op, b: torch.Tensor):
@@ -182,6 +195,9 @@ class PolySmoother:
             return stencil_kernels.stencil_poly_smooth(
                 op.coeffs, b.contiguous(), self.roots, op.nx, op.nt,
                 with_residual=True)
+        if _k4(op, b):
+            return block_kernels.block_poly_smooth(op.layout, b, self.roots,
+                                                   with_residual=True)
         return poly_smoother(op.matvec, b, self.roots, with_residual=True)
 
 

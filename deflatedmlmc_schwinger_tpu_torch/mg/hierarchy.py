@@ -4,12 +4,15 @@ that ``hier.to(device)`` moves every level.
 
   * level 0: the 9-point StencilOperator (ops/dirac.py, kernel K1);
   * intermediate levels: BlockStencilOperator (cyclic block stencil, with
-    the grouped-band packing of ``pack_grouped``);
+    the block-sparse layout of kernel K4 and, on the CPU, the grouped-band
+    packing of ``pack_grouped``);
   * the coarsest level: DenseOperator plus its precomputed dense inverse.
 
 Prolongators are per-aggregate dense blocks (n_aggr, L, 2k), so P and
-R = P^H are one batched einsum each. The coarse matvecs are plain
-einsum/matmul calls; the JAX package leaves them to XLA too.
+R = P^H are one batched einsum each. On a CUDA device a block stencil's
+matvec is kernel K4 (ops/block_kernels.py) on its nonzero sub-blocks; on
+the CPU it is the einsum over the grouped band or the plain blocks, as the
+JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels
 
 
 class DenseOperator(nn.Module):
@@ -47,11 +52,15 @@ class BlockStencilOperator(nn.Module):
     """Coarse operator as a cyclic block stencil: blocks[j, k] is the
     (dc, dc) coupling of block-row j to block-column (j + offsets[k]) mod nac.
 
-    ``gmat``/``gwin``: optional grouped-band packing (see pack_grouped)."""
+    ``gmat``/``gwin``: optional grouped-band packing (see pack_grouped).
+    ``bsr_rowptr``/``bsr_cols``/``bsr_vals``: the nonzero sub-blocks of
+    ``blocks`` as block-sparse rows (``layout``: the one given, or built
+    here by block_kernels.block_layout), which kernel K4 reads."""
 
     def __init__(self, blocks: torch.Tensor, offsets: Sequence[int],
                  gmat: Optional[torch.Tensor] = None,
-                 gwin: Optional[torch.Tensor] = None, G: int = 0):
+                 gwin: Optional[torch.Tensor] = None, G: int = 0,
+                 layout: Optional[block_kernels.BlockLayout] = None):
         super().__init__()
         self.register_buffer("blocks", blocks)
         self.register_buffer("gmat", gmat)
@@ -62,6 +71,11 @@ class BlockStencilOperator(nn.Module):
         self.register_buffer("gidx", idx.to(blocks.device))
         self.offsets = tuple(int(o) for o in offsets)
         self.G = int(G)
+        if layout is None:
+            layout = block_kernels.block_layout(blocks, self.offsets)
+        self.register_buffer("bsr_rowptr", layout.rowptr)
+        self.register_buffer("bsr_cols", layout.cols)
+        self.register_buffer("bsr_vals", layout.vals)
 
     @property
     def n(self) -> int:
@@ -71,7 +85,19 @@ class BlockStencilOperator(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.blocks.dtype
 
+    @property
+    def layout(self) -> block_kernels.BlockLayout:
+        return block_kernels.BlockLayout(self.bsr_rowptr, self.bsr_cols, self.bsr_vals)
+
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """K4 on a CUDA device, ``einsum_matvec`` on the CPU."""
+        if v.is_cuda:
+            return block_kernels.block_matvec(self.layout, v)
+        return self.einsum_matvec(v)
+
+    def einsum_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """A v by the grouped band (a gather and a batched matrix product)
+        when ``gmat`` is set, else by the plain blocks."""
         nac, K, dc, _ = self.blocks.shape
         batch = v.shape[:-1]
         xa = v.reshape(batch + (nac, dc))
@@ -102,10 +128,12 @@ def pack_grouped(op: BlockStencilOperator, group: int = 8,
     are grouped ``group`` at a time, offsets are clustered on the cyclic
     index circle, and each group's band becomes one dense (nwin*dc, G*dc)
     matrix, so the matvec is one batched matmul. Returns ``op`` unchanged
-    when packing does not pay (same rules as the JAX package)."""
+    when packing does not pay (same rules as the JAX package), and on a
+    CUDA device, where kernel K4 reads the block-sparse layout and no
+    einsum runs."""
     nac, K, dc, _ = op.blocks.shape
     G = int(group)
-    if op.gmat is not None or nac % G or nac < 2 * G:
+    if op.blocks.is_cuda or op.gmat is not None or nac % G or nac < 2 * G:
         return op
     offs = sorted(int(o) % nac for o in op.offsets)
     gaps = [(offs[(i + 1) % len(offs)] - offs[i]) % nac for i in range(len(offs))]
@@ -149,6 +177,7 @@ def pack_grouped(op: BlockStencilOperator, group: int = 8,
         gmat=torch.from_numpy(gmat).to(device=op.blocks.device, dtype=op.blocks.dtype),
         gwin=torch.as_tensor(gwin, dtype=torch.long, device=op.blocks.device),
         G=G,
+        layout=op.layout,
     )
 
 
@@ -156,7 +185,7 @@ def block_stencil_from_dense(C: np.ndarray, dc: int, dtype: torch.dtype,
                              max_offsets: int = 48,
                              device=None) -> Optional[BlockStencilOperator]:
     """The cyclic block stencil of a dense (n, n) coarse matrix with
-    (dc, dc) blocks, packed by ``pack_grouped``, on ``device`` in ``dtype``;
+    (dc, dc) blocks, through ``pack_grouped``, on ``device`` in ``dtype``;
     None when n is no multiple of dc or more than ``max_offsets`` cyclic
     block offsets couple (the matrix then stays a DenseOperator)."""
     n = C.shape[0]

@@ -402,6 +402,8 @@ def load_library() -> ctypes.CDLL:
                         ("residual_per_site", [P, P, P, P, I, I, I, I, P]),
                     "stencil_poly_step": ("poly_step", [P, P, P, P, D, D, I, I, I, I, I, P]),
                     "stencil_poly_tiled": ("poly_tiled", [P, P, P, P, P, I, I, I, I, I, I, P]),
+                    # K4 (ops/block_kernels.py): seven pointers, 1/theta, cfg, stream
+                    "coarse_bsr": ("coarse_bsr", [P] * 7 + [D, D, P, P]),
                 }
                 for key, (entry, argtypes) in fns.items():
                     fn = getattr(lib, f"dmlmc_stencil_{entry}_{sfx}")

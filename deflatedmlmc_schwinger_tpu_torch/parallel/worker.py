@@ -127,16 +127,18 @@ def run_entry(name: str, device: str = "cuda"):
     """One rank's share of a gateway entry started with ``devices=N``. The
     result travels back as host numbers: the estimator's result without its
     timer and tensors, the phase seconds and the seconds of each phase spent
-    in transport and in host reads, this rank's kernel launches during the
-    entry, and
+    in transport and in host reads, this rank's launches of K1-K3
+    (``kernel_launches``) and of K4 (``block_launches``) during the entry,
+    and
     ``ranks_agree``: whether every rank of the group got the same result
     (``ranks_differ_in`` names the keys that differ)."""
     import torch.distributed as dist
 
     from deflatedmlmc_schwinger_tpu_torch import gateway
-    from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels
+    from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels, stencil_kernels
 
     stencil_kernels.reset_launch_counts()
+    block_kernels.reset_launch_counts()
     result = gateway.ENTRIES[name](device=device)
     out = {k: v for k, v in result.items() if k not in ("timer", "deflation")}
     if dist.is_initialized():
@@ -152,4 +154,5 @@ def run_entry(name: str, device: str = "cuda"):
     out["graph_calls"] = {k: dict(v) for k, v in result["timer"].graphs.items()}
     out["kernel_launches"] = stencil_kernels.launch_counts()
     out["yardstick_launches"] = stencil_kernels.yardstick_counts()
+    out["block_launches"] = block_kernels.launch_counts()
     return out

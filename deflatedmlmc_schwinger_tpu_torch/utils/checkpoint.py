@@ -46,7 +46,8 @@ def hierarchy_from_numpy(arrays: Mapping[str, np.ndarray], meta, device,
                          dtype: torch.dtype) -> Hierarchy:
     """Build a Hierarchy from the npz arrays and the decoded ``__meta__``
     (a dict with 'levels', or the bare level list of older checkpoints);
-    grouped-band packing is redone as the JAX loader does."""
+    grouped-band packing is redone as the JAX loader does (on the CPU; on a
+    CUDA device kernel K4 reads the block-sparse layout, rebuilt here)."""
     levels_meta = meta["levels"] if isinstance(meta, dict) else meta
     extra: Dict = meta if isinstance(meta, dict) else {}
 

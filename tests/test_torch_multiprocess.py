@@ -81,6 +81,8 @@ def test_two_rank_estimator_bit_identical(two_ranks):
         assert all(0 <= s <= r["phase_seconds"][k] for k, s in r["host_read_seconds"].items())
     assert r0["kernel_launches"] == {"stencil_matvec": 0, "stencil_residual": 0,
                                      "stencil_poly_smooth": 0}      # CPU ranks: plain versions
+    assert r0["block_launches"] == {"block_matvec": 0, "block_residual": 0,
+                                    "block_poly_smooth": 0}         # and the einsum matvec
 
 
 def test_two_ranks_match_single_rank(two_ranks, one_rank):
