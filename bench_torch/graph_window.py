@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""benchmark/span_run.py with the V-cycle graph counter (utils/timer.py
-``graph_calls``) taken around the timed window: how often the coarse
-sub-cycle replayed, captured or ran eagerly while the cell sampled, beside
-the window's host busy and blocked milliseconds per outer iteration and the
-span pass's device milliseconds by layer.
+"""benchmark/span_run.py with the graph counters (utils/timer.py
+``graph_calls``, the V-cycle's, and ``fgmres_graph_calls``, FGMRES's step
+tails and cycle ends) taken around the timed window: how often the coarse
+sub-cycle and FGMRES's own work replayed, captured or ran eagerly while the
+cell sampled, beside the window's host busy and blocked milliseconds per
+outer iteration and the span pass's device milliseconds by layer.
 
     python3 bench_torch/graph_window.py --workload hutch128.b128 --seed 7 --seconds 51
 
-Prints span_run.py's JSON line with ``graph_calls`` (the window's counts)
-and ``graph_hit_share`` (replays / (replays + eager)) added; the span pass's
-tables go to standard error. Needs a CUDA card (exit 2 without one).
+Prints span_run.py's JSON line with ``graph_calls`` and
+``fgmres_graph_calls`` (the window's counts) and ``graph_hit_share`` and
+``fgmres_graph_hit_share`` (replays / (replays + eager)) added; the span
+pass's tables go to standard error. Needs a CUDA card (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -44,20 +46,22 @@ def main(argv=None) -> int:
     import span_run
     import spantrace
     import window
-    from deflatedmlmc_schwinger_tpu_torch.utils.timer import graph_calls
+    from deflatedmlmc_schwinger_tpu_torch.utils.timer import fgmres_graph_calls, graph_calls
 
     if not torch.cuda.is_available():
         print(f"{args.workload}: needs a CUDA device", file=sys.stderr)
         return 2
-    counts = {}
+    counters = dict(graph_calls=graph_calls, fgmres_graph_calls=fgmres_graph_calls)
+    counts = {name: {} for name in counters}
     run = window.Window.run
 
     def counted_run(self, *a, **k):
-        before = dict(graph_calls)
+        before = {name: dict(c) for name, c in counters.items()}
         try:
             return run(self, *a, **k)
         finally:
-            counts.update({n: c - before[n] for n, c in graph_calls.items()})
+            for name, c in counters.items():
+                counts[name].update({n: v - before[name][n] for n, v in c.items()})
 
     window.Window.run = counted_run
     spec = core.load_cell(args.workload, ROOT)
@@ -66,10 +70,11 @@ def main(argv=None) -> int:
     if out["spans"]:
         for line in spantrace.tables(out["spans"]):
             print(line, file=sys.stderr)
-    hits = counts["replays"] + counts["eager"]
-    out.update(workload=args.workload, seed=args.seed, device=torch.cuda.get_device_name(0),
-               graph_calls=counts,
-               graph_hit_share=counts["replays"] / hits if hits else None)
+    out.update(workload=args.workload, seed=args.seed, device=torch.cuda.get_device_name(0))
+    for name, c in counts.items():
+        hits = c["replays"] + c["eager"]
+        out[name] = c
+        out[name.replace("calls", "hit_share")] = c["replays"] / hits if hits else None
     print(json.dumps(out))
     return 0
 

@@ -127,7 +127,8 @@ def run_entry(name: str, device: str = "cuda"):
     """One rank's share of a gateway entry started with ``devices=N``. The
     result travels back as host numbers: the estimator's result without its
     timer and tensors, the phase seconds and the seconds of each phase spent
-    in transport and in host reads, this rank's launches of K1-K3
+    in transport and in host reads, each phase's V-cycle and FGMRES graph
+    calls (``graph_calls``, ``fgmres_graph_calls``), this rank's launches of K1-K3
     (``kernel_launches``) and of K4 (``block_launches``) during the entry,
     and
     ``ranks_agree``: whether every rank of the group got the same result
@@ -152,6 +153,7 @@ def run_entry(name: str, device: str = "cuda"):
     out["transport_seconds"] = dict(result["timer"].transport)
     out["host_read_seconds"] = dict(result["timer"].host_read)
     out["graph_calls"] = {k: dict(v) for k, v in result["timer"].graphs.items()}
+    out["fgmres_graph_calls"] = {k: dict(v) for k, v in result["timer"].fgmres_graphs.items()}
     out["kernel_launches"] = stencil_kernels.launch_counts()
     out["yardstick_launches"] = stencil_kernels.yardstick_counts()
     out["block_launches"] = block_kernels.launch_counts()

@@ -65,9 +65,12 @@ def result_to_json(cfg: TraceConfig, result: Dict, example: str) -> str:
         ]
     if "timer" in result:
         # each phase's seconds, the seconds of it spent blocked in host
-        # reads of device values (utils/timer.py host_read), and its V-cycle
-        # graph calls (captures, replays, eager; mg/cycle.py CycleGraphs)
+        # reads of device values (utils/timer.py host_read), its V-cycle
+        # graph calls (captures, replays, eager; mg/cycle.py CycleGraphs) and
+        # its FGMRES graph calls (solvers/fgmres.py KrylovWorkspace)
         out["phase_seconds"] = dict(result["timer"].totals)
         out["host_read_seconds"] = dict(result["timer"].host_read)
         out["graph_calls"] = {k: dict(v) for k, v in result["timer"].graphs.items()}
+        out["fgmres_graph_calls"] = {k: dict(v)
+                                     for k, v in result["timer"].fgmres_graphs.items()}
     return json.dumps(out)

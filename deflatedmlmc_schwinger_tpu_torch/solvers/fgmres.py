@@ -21,15 +21,27 @@ around a restart cycle, ``fgmres.step`` around an Arnoldi step, and
 ``fgmres.mgs`` and ``fgmres.givens`` around a step's Gram-Schmidt and Givens
 loops. The host reads of the loop predicates count under the sites
 ``fgmres.cycle``, ``fgmres.step`` and ``fgmres.stall``.
+
+A solve runs over a ``KrylovWorkspace``, the buffers of its shape, which
+solves of that shape reuse. Each cycle's head (residual, V[0], zeroed
+columns), each step's preconditioner and operator, the cycle's true
+residual and the host reads run eagerly; FGMRES's own work, each step's
+tail (Gram-Schmidt, rotations, residual estimates) and each cycle's end
+(back substitution, x update), reads and writes only the workspace and, on
+a CUDA device, replays as CUDA graphs keyed by shape and step index, with
+the same kernels on the same shapes as the eager calls. Solves return
+copies of the workspace's x and iteration counts.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from contextlib import contextmanager
+from functools import partial
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read, span
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import fgmres_graph_calls, host_read, span
 
 
 class FGMRESResult(NamedTuple):
@@ -91,103 +103,233 @@ def _givens(a: torch.Tensor, b: torch.Tensor, tiny: float):
     return c, s, c * a + s * b
 
 
+class KrylovWorkspace:
+    """The buffers of one solve shape (device, dtype, B, n, m): the Krylov
+    bases V (m + 1, B, n) and Z (m, B, n), the Hessenberg columns H, the
+    rotated right-hand side g, the rotations cs and sn, the Givens residual
+    estimates ``res``, the per-row step counts ``iters``, the absolute
+    tolerances ``tol_abs``, the step tail's input ``w`` (A z of the step) and
+    the iterate ``x``. They hold no operator data, so every solver of the
+    shape in the process shares one (``_workspace``).
+
+    On a CUDA device (``graphable``) FGMRES's own work, each step tail and
+    each cycle end (``_step_tail``, ``_cycle_end``: they read and write only
+    these buffers), replays as one captured ``torch.cuda.CUDAGraph`` per
+    key ("step", j) or ("end", j). A key's first call runs eagerly; its
+    second runs eagerly on the workspace's side stream, which applies it
+    once and warms that stream up, and is then captured there into the
+    workspace's memory pool without being run again; later calls replay on
+    the current stream. Counted in utils/timer.py ``fgmres_graph_calls``
+    (the ``fgmres.graph`` counter): each call is one of ``captures``,
+    ``replays`` and ``eager``. A replay is one ``fgmres.step.graph`` or
+    ``fgmres.end.graph`` span; ``fgmres.mgs`` and ``fgmres.givens`` appear
+    on eager calls only."""
+
+    def __init__(self, B: int, n: int, m: int, cdtype: torch.dtype, rdtype: torch.dtype,
+                 device, graphable: bool):
+        def buf(shape, dtype=cdtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        self.V, self.Z = buf((m + 1, B, n)), buf((m, B, n))
+        self.H, self.g = buf((B, m + 1, m)), buf((B, m + 1))
+        self.cs, self.sn = buf((m, B), rdtype), buf((m, B))
+        self.res, self.tol_abs = buf((B,), rdtype), buf((B,), rdtype)
+        self.iters = buf((B,), torch.int32)
+        self.w, self.x = buf((B, n)), buf((B, n))
+        self.graphable = graphable
+        self.busy = False
+        self._seen = set()
+        self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
+        self._stream = None
+        self._pool = None
+
+    def _route(self, key) -> str:
+        """What a call of this key does: "replay", "capture" or "eager"."""
+        if not self.graphable:
+            return "eager"
+        if key in self._graphs:
+            return "replay"
+        if key not in self._seen:
+            self._seen.add(key)
+            return "eager"
+        return "capture"
+
+    def run(self, key: tuple, name: str, fn: Callable[[], None]) -> None:
+        """Apply ``fn`` (a step tail or a cycle end over these buffers) once,
+        eagerly, by a capturing call or by a replay of the key's graph."""
+        route = self._route(key)
+        fgmres_graph_calls["eager" if route == "eager" else route + "s"] += 1
+        if route == "replay":
+            with span(name):
+                self._graphs[key].replay()
+        elif route == "capture":
+            self._graphs[key] = self._capture(fn)
+        else:
+            fn()
+
+    def _capture(self, fn: Callable[[], None]) -> torch.cuda.CUDAGraph:
+        """``fn`` run once on the side stream, then recorded there (a capture
+        runs nothing): PyTorch's side-stream recipe with the warm-up as the
+        call's one application."""
+        with torch.cuda.device(self.V.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._stream):
+                fn()
+                graph.capture_begin(pool=self._pool)
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream().wait_stream(self._stream)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return graph
+
+
+# the workspaces held for reuse, one per solve shape, at most MAX_WORKSPACES
+MAX_WORKSPACES = 4
+_workspaces: Dict[tuple, KrylovWorkspace] = {}
+
+
+@contextmanager
+def _workspace(b: torch.Tensor, m: int, rdtype: torch.dtype, group):
+    """The held workspace of b's solve shape, made at the shape's first
+    solve. A solve over a ``group`` of ranks (its inner products are
+    collectives), a shape past ``MAX_WORKSPACES`` held ones, and a solve
+    that starts while another of its shape runs get fresh buffers, and run
+    eagerly."""
+    B, n = b.shape
+    key = (b.device, b.dtype, B, n, m)
+    ws = _workspaces.get(key) if group is None else None
+    if ws is None and group is None and len(_workspaces) < MAX_WORKSPACES:
+        ws = _workspaces[key] = KrylovWorkspace(B, n, m, b.dtype, rdtype, b.device,
+                                                graphable=b.is_cuda)
+    if ws is None or ws.busy:
+        ws = KrylovWorkspace(B, n, m, b.dtype, rdtype, b.device, graphable=False)
+    ws.busy = True
+    try:
+        yield ws
+    finally:
+        ws.busy = False
+
+
+def _step_tail(ws: KrylovWorkspace, j: int, tiny: float, group) -> None:
+    """Arnoldi step j after its preconditioner and operator (Z[j] and w
+    set): the active rows' step counts, modified Gram-Schmidt of w against
+    V[0..j] into V[j+1], the earlier rotations and a new one on the column,
+    the rotated right-hand side and the active rows' residual estimates."""
+    B, m = ws.H.shape[0], ws.H.shape[2]
+    V, H, g, cs, sn, res = ws.V, ws.H, ws.g, ws.cs, ws.sn, ws.res
+    active = res > ws.tol_abs
+    ws.iters += active.to(torch.int32)
+    w = ws.w
+    hcol = torch.zeros((B, m + 1), dtype=V.dtype, device=V.device)
+    with span("fgmres.mgs"):
+        for i in range(j + 1):           # modified Gram-Schmidt
+            hi = _dot(V[i], w, group)
+            w = w - hi[:, None] * V[i]
+            hcol[:, i] = hi
+        hnorm = _norm(w, group)
+        hcol[:, j + 1] = hnorm
+        V[j + 1] = w / torch.clamp(hnorm, min=tiny)[:, None]
+    with span("fgmres.givens"):
+        for i in range(j):
+            hi, hip1 = hcol[:, i], hcol[:, i + 1]
+            new_i = cs[i] * hi + sn[i] * hip1
+            new_ip1 = cs[i] * hip1 - sn[i].conj() * hi
+            hcol[:, i] = new_i
+            hcol[:, i + 1] = new_ip1
+        c_new, s_new, r_new = _givens(hcol[:, j], hcol[:, j + 1], tiny)
+        hcol[:, j] = r_new
+        hcol[:, j + 1] = 0
+        cs[j] = c_new
+        sn[j] = s_new
+        gj = g[:, j].clone()
+        g[:, j] = c_new * gj
+        g[:, j + 1] = -s_new.conj() * gj
+        H[:, :, j] = hcol
+        res.copy_(torch.where(active, g[:, j + 1].abs(), res))
+
+
+def _cycle_end(ws: KrylovWorkspace, j: int, tiny: float) -> None:
+    """The end of a cycle that took j steps: back substitution on the
+    rotated upper-triangular system, then x += Z[:j] y."""
+    B, m = ws.H.shape[0], ws.H.shape[2]
+    dev = ws.H.device
+    # unused columns (>= j) carry identity diagonal and zero rhs -> y = 0
+    used = torch.arange(m, device=dev) < j
+    R = ws.H[:, :m, :m].clone()
+    diag = torch.arange(m, device=dev)
+    R[:, diag, diag] = torch.where(used[None, :], R[:, diag, diag],
+                                   torch.ones_like(R[:, diag, diag]))
+    rhs = torch.where(used[None, :], ws.g[:, :m], torch.zeros_like(ws.g[:, :m]))
+    y = torch.zeros((B, m), dtype=ws.H.dtype, device=dev)
+    for jj in range(m - 1, -1, -1):
+        s = rhs[:, jj] - (R[:, jj, :] * y).sum(-1)
+        d = R[:, jj, jj]
+        y[:, jj] = s * d.conj() / torch.clamp(d.real ** 2 + d.imag ** 2, min=tiny)
+    ws.x.add_(torch.einsum("jbn,bj->bn", ws.Z[:j], y[:, :j]))
+
+
 def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  x0: torch.Tensor, tol_abs: torch.Tensor, restart: int,
                  max_restarts: int, stall_ratio: Optional[float],
                  stall_cycles: int, matvec_precond: Optional[Callable] = None,
                  group=None, pred_group=None):
-    B, n = b.shape
     m = restart
-    cdtype = b.dtype
     tiny = torch.finfo(tol_abs.dtype).tiny
-    dev = b.device
-    # Krylov buffers allocated once per solve, reused by every restart
-    V = torch.empty((m + 1, B, n), dtype=cdtype, device=dev)
-    Z = torch.empty((m, B, n), dtype=cdtype, device=dev)
-
-    x = x0
-    resnorm = _norm(b - matvec(x0), group)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    cycles = 0
-    stalls = 0
-    while (cycles < max_restarts and stalls < stall_cycles
-           and _gany((resnorm > tol_abs).any(), pred_group, "fgmres.cycle")):
-        with span("fgmres.cycle"):
-            r = b - matvec(x)
-            beta = _norm(r, group)
-            V[0] = r / torch.clamp(beta, min=tiny)[:, None]
-            H = torch.zeros((B, m + 1, m), dtype=cdtype, device=dev)
-            g = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
-            g[:, 0] = beta
-            cs = torch.zeros((m, B), dtype=beta.dtype, device=dev)
-            sn = torch.zeros((m, B), dtype=cdtype, device=dev)
-            res = beta
-            j = 0
-            while j < m and _gany((res > tol_abs).any(), pred_group, "fgmres.step"):
-                with span("fgmres.step"):
-                    active = res > tol_abs
-                    iters += active.to(torch.int32)
-                    if matvec_precond is not None:
-                        # the V-cycle's own final residual gives A z = v - r,
-                        # which saves this step's operator application
-                        z, w = matvec_precond(V[j])
-                    else:
-                        z = precond(V[j])
-                        w = matvec(z)
-                    Z[j] = z
-                    hcol = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
-                    with span("fgmres.mgs"):
-                        for i in range(j + 1):           # modified Gram-Schmidt
-                            hi = _dot(V[i], w, group)
-                            w = w - hi[:, None] * V[i]
-                            hcol[:, i] = hi
-                        hnorm = _norm(w, group)
-                        hcol[:, j + 1] = hnorm
-                        V[j + 1] = w / torch.clamp(hnorm, min=tiny)[:, None]
-                    with span("fgmres.givens"):
-                        for i in range(j):
-                            hi, hip1 = hcol[:, i], hcol[:, i + 1]
-                            new_i = cs[i] * hi + sn[i] * hip1
-                            new_ip1 = cs[i] * hip1 - sn[i].conj() * hi
-                            hcol[:, i] = new_i
-                            hcol[:, i + 1] = new_ip1
-                        c_new, s_new, r_new = _givens(hcol[:, j], hcol[:, j + 1], tiny)
-                        hcol[:, j] = r_new
-                        hcol[:, j + 1] = 0
-                        cs[j] = c_new
-                        sn[j] = s_new
-                        gj = g[:, j].clone()
-                        g[:, j] = c_new * gj
-                        g[:, j + 1] = -s_new.conj() * gj
-                        H[:, :, j] = hcol
-                        res = torch.where(active, g[:, j + 1].abs(), res)
-                j += 1
-
-            # back substitution on the rotated upper-triangular system;
-            # unused columns (>= j) carry identity diagonal and zero rhs -> y = 0
-            used = torch.arange(m, device=dev) < j
-            R = H[:, :m, :m].clone()
-            diag = torch.arange(m, device=dev)
-            R[:, diag, diag] = torch.where(used[None, :], R[:, diag, diag],
-                                           torch.ones_like(R[:, diag, diag]))
-            rhs = torch.where(used[None, :], g[:, :m], torch.zeros_like(g[:, :m]))
-            y = torch.zeros((B, m), dtype=cdtype, device=dev)
-            for jj in range(m - 1, -1, -1):
-                s = rhs[:, jj] - (R[:, jj, :] * y).sum(-1)
-                d = R[:, jj, jj]
-                y[:, jj] = s * d.conj() / torch.clamp(d.real ** 2 + d.imag ** 2, min=tiny)
-            x = x + torch.einsum("jbn,bj->bn", Z[:j], y[:, :j])
-            true_res = _norm(b - matvec(x), group)
-            if stall_ratio is not None:
-                # progress on the still-active rows only
-                active_prev = torch.where(resnorm > tol_abs, resnorm,
-                                          torch.zeros_like(resnorm))
-                progressing = _gany((true_res < stall_ratio * active_prev).any(),
-                                    pred_group, "fgmres.stall")
-                stalls = 0 if progressing else stalls + 1
-            resnorm = true_res
-        cycles += 1
-    return x, resnorm, iters, cycles
+    with _workspace(b, m, tol_abs.dtype, group) as ws:
+        V, Z = ws.V, ws.Z
+        ws.tol_abs.copy_(tol_abs)
+        ws.iters.zero_()
+        ws.x.copy_(x0)
+        resnorm = _norm(b - matvec(ws.x), group)
+        cycles = 0
+        stalls = 0
+        while (cycles < max_restarts and stalls < stall_cycles
+               and _gany((resnorm > tol_abs).any(), pred_group, "fgmres.cycle")):
+            with span("fgmres.cycle"):
+                r = b - matvec(ws.x)
+                beta = _norm(r, group)
+                V[0] = r / torch.clamp(beta, min=tiny)[:, None]
+                ws.H.zero_()
+                ws.g.zero_()
+                ws.g[:, 0] = beta
+                ws.cs.zero_()
+                ws.sn.zero_()
+                ws.res.copy_(beta)
+                j = 0
+                while j < m and _gany((ws.res > ws.tol_abs).any(), pred_group,
+                                      "fgmres.step"):
+                    with span("fgmres.step"):
+                        if matvec_precond is not None:
+                            # the V-cycle's own final residual gives A z = v - r,
+                            # which saves this step's operator application
+                            z, w = matvec_precond(V[j])
+                        else:
+                            z = precond(V[j])
+                            w = matvec(z)
+                        Z[j] = z
+                        ws.w.copy_(w)
+                        ws.run(("step", j), "fgmres.step.graph",
+                               partial(_step_tail, ws, j, tiny, group))
+                    j += 1
+                ws.run(("end", j), "fgmres.end.graph", partial(_cycle_end, ws, j, tiny))
+                true_res = _norm(b - matvec(ws.x), group)
+                if stall_ratio is not None:
+                    # progress on the still-active rows only
+                    active_prev = torch.where(resnorm > tol_abs, resnorm,
+                                              torch.zeros_like(resnorm))
+                    progressing = _gany((true_res < stall_ratio * active_prev).any(),
+                                        pred_group, "fgmres.stall")
+                    stalls = 0 if progressing else stalls + 1
+                resnorm = true_res
+            cycles += 1
+        # copies: the next solve of this shape reuses the workspace
+        return ws.x.clone(), resnorm, ws.iters.clone(), cycles
 
 
 def fgmres(

@@ -7,7 +7,8 @@ phase edge when a CUDA device is in use, so a phase's time includes its
 device work. Beside each phase's seconds it keeps the seconds this process
 spent in the transport helper of parallel/distributed.py during the phase
 (0 without a process group), the seconds it spent blocked in counted host
-reads, and its V-cycle graph calls (``graphs``).
+reads, its V-cycle graph calls (``graphs``) and its FGMRES graph calls
+(``fgmres_graphs``).
 
 ``span(name)``: a range at a layer boundary of the sampling path
 (estimator batch, FGMRES solve, cycle and Arnoldi step, V-cycle level, ...).
@@ -28,6 +29,11 @@ the name).
 V-cycle's CUDA graphs engage (mg/cycle.py ``CycleGraphs``): ``captures``,
 ``replays`` and ``eager`` calls, always on; the hit share is
 replays / (replays + eager).
+
+``fgmres_graph_calls``, the ``fgmres.graph`` counter: how often FGMRES's
+step tails and cycle ends replay as CUDA graphs (solvers/fgmres.py
+``KrylovWorkspace``): each call is one of ``captures``, ``replays`` and
+``eager``, always on; the hit share is again replays / (replays + eager).
 """
 
 from __future__ import annotations
@@ -49,6 +55,11 @@ host_reads: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
 # CycleGraphs) that captured, replayed or ran eagerly, since the last
 # reset_graph_calls()
 graph_calls: Dict[str, int] = dict(captures=0, replays=0, eager=0)
+
+# the fgmres.graph counter: FGMRES step tails and cycle ends (solvers/fgmres.py
+# KrylovWorkspace) that captured, replayed or ran eagerly, since the last
+# reset_fgmres_graph_calls()
+fgmres_graph_calls: Dict[str, int] = dict(captures=0, replays=0, eager=0)
 
 
 def set_spans(on: bool) -> None:
@@ -105,6 +116,10 @@ def reset_graph_calls() -> None:
     graph_calls.update(dict.fromkeys(graph_calls, 0))
 
 
+def reset_fgmres_graph_calls() -> None:
+    fgmres_graph_calls.update(dict.fromkeys(fgmres_graph_calls, 0))
+
+
 class PhaseTimer:
     def __init__(self, device: Optional[torch.device] = None):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -113,6 +128,8 @@ class PhaseTimer:
         self.host_read: Dict[str, float] = defaultdict(float)
         self.graphs: Dict[str, Dict[str, int]] = defaultdict(
             lambda: dict.fromkeys(graph_calls, 0))
+        self.fgmres_graphs: Dict[str, Dict[str, int]] = defaultdict(
+            lambda: dict.fromkeys(fgmres_graph_calls, 0))
         self.device = None if device is None else torch.device(device)
 
     def _sync(self) -> None:
@@ -130,6 +147,7 @@ class PhaseTimer:
             moved0 = transport_stats["seconds"]
             read0 = host_read_totals()["seconds"]
             graphs0 = dict(graph_calls)
+            fgmres0 = dict(fgmres_graph_calls)
             try:
                 yield
             finally:
@@ -139,6 +157,8 @@ class PhaseTimer:
                 self.host_read[name] += host_read_totals()["seconds"] - read0
                 for k, n in graph_calls.items():
                     self.graphs[name][k] += n - graphs0[k]
+                for k, n in fgmres_graph_calls.items():
+                    self.fgmres_graphs[name][k] += n - fgmres0[k]
                 self.counts[name] += 1
 
     def reset(self) -> None:
@@ -147,15 +167,17 @@ class PhaseTimer:
         self.transport.clear()
         self.host_read.clear()
         self.graphs.clear()
+        self.fgmres_graphs.clear()
 
     def __str__(self) -> str:
         lines = ["\nTimings specific to computations:"]
         for name in sorted(self.totals):
             line = f" -- {name} : {self.totals[name]:.4f} s ({self.counts[name]} calls)"
-            g = self.graphs.get(name)
-            if g and (g["captures"] or g["replays"]):
-                line += (f", V-cycle graphs {g['captures']} captured, {g['replays']} "
-                         f"replayed, {g['eager']} eager")
+            for what, calls in (("V-cycle", self.graphs), ("FGMRES", self.fgmres_graphs)):
+                g = calls.get(name)
+                if g and (g["captures"] or g["replays"]):
+                    line += (f", {what} graphs {g['captures']} captured, {g['replays']} "
+                             f"replayed, {g['eager']} eager")
             if self.host_read.get(name):
                 line += f", {self.host_read[name]:.4f} s in host reads"
             lines.append(line)

@@ -241,11 +241,15 @@ def test_mlmc_flagship_pattern_matches_jax(built, solvers, monkeypatch, schedule
     assert ref["results"][2]["level_complexity"] == 256.0 ** 3 + 64.0 ** 3
     out = json.loads(result_to_json(cfg, res, "mlmc"))
     assert set(out) == (set(json.loads(jax_result_to_json(jcfg, ref, "mlmc")))
-                        | {"std_dev", "host_read_seconds", "graph_calls"})
-    assert set(out["host_read_seconds"]) == set(out["phase_seconds"]) == set(out["graph_calls"])
-    # on the CPU the coarse V-cycle runs eagerly: no capture, no replay
-    assert all(c["captures"] == c["replays"] == 0 for c in out["graph_calls"].values())
-    assert out["graph_calls"]["sampling"]["eager"] > 0
+                        | {"std_dev", "host_read_seconds", "graph_calls",
+                           "fgmres_graph_calls"})
+    assert (set(out["host_read_seconds"]) == set(out["phase_seconds"])
+            == set(out["graph_calls"]) == set(out["fgmres_graph_calls"]))
+    # on the CPU the coarse V-cycle and FGMRES's own work run eagerly: no
+    # capture, no replay
+    for calls in (out["graph_calls"], out["fgmres_graph_calls"]):
+        assert all(c["captures"] == c["replays"] == 0 for c in calls.values())
+        assert calls["sampling"]["eager"] > 0
     assert out["host_read_seconds"]["sampling"] > 0     # the sampling loop's reads
 
 
