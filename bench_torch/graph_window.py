@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """benchmark/span_run.py with the graph counters (utils/timer.py
-``graph_calls``, the V-cycle's, and ``fgmres_graph_calls``, FGMRES's step
-tails and cycle ends) taken around the timed window: how often the coarse
-sub-cycle and FGMRES's own work replayed, captured or ran eagerly while the
-cell sampled, beside the window's host busy and blocked milliseconds per
-outer iteration and the span pass's device milliseconds by layer.
+``graph_calls``: ``vcycle.graph``, the V-cycle's, and ``fgmres.graph``,
+FGMRES's step tails and cycle ends) taken around the timed window: how
+often the coarse sub-cycle and FGMRES's own work replayed, captured or ran
+eagerly while the cell sampled, beside the window's host busy and blocked
+milliseconds per outer iteration and the span pass's device milliseconds by
+layer.
 
     python3 bench_torch/graph_window.py --workload hutch128.b128 --seed 7 --seconds 51
 
@@ -46,12 +47,13 @@ def main(argv=None) -> int:
     import span_run
     import spantrace
     import window
-    from deflatedmlmc_schwinger_tpu_torch.utils.timer import fgmres_graph_calls, graph_calls
+    from deflatedmlmc_schwinger_tpu_torch.utils.timer import graph_calls
 
     if not torch.cuda.is_available():
         print(f"{args.workload}: needs a CUDA device", file=sys.stderr)
         return 2
-    counters = dict(graph_calls=graph_calls, fgmres_graph_calls=fgmres_graph_calls)
+    counters = dict(graph_calls=graph_calls["vcycle.graph"],
+                    fgmres_graph_calls=graph_calls["fgmres.graph"])
     counts = {name: {} for name in counters}
     run = window.Window.run
 

@@ -61,7 +61,7 @@
 6. Holds K1 and K2 to their plain versions at the G101/G201 shapes (8
    probes, 16^2, complex128, to 1e-12) and K1-K3 at the G302 shapes (16
    probes, 512^2, complex64, and 8 probes, the block that each of two
-   sample ranks gives the replicated solver in phase 12), each with its
+   sample ranks gives the replicated solver in phase 11), each with its
    bound and, for K1 and K2, the per-site kernels, the device and host
    times and the torch.sparse call, as in phase 2.
 7. Runs the unchanged 16^2 profile (set_params("schwinger16") with
@@ -81,10 +81,7 @@
 10. Checkpoints: a Hutchinson run on a generated 64^2 lattice cut by
    max_nr_ests with a checkpoint directory, resumed, and held equal to the
    uninterrupted run (same nr_ests and iterations, trace to round-off).
-11. Times the fused (z, A z) V-cycle (MGSolver.precond_matvec through
-   fgmres's matvec_precond) beside the precond + matvec pair on one
-   128-probe batch at the G102 shapes; the iteration counts must be equal.
-12. Several ranks of torch.distributed on the one card (the gloo backend,
+11. Several ranks of torch.distributed on the one card (the gloo backend,
    staged through the host), started through parallel/worker.py after the
    kernels are built: K1 and K2 against their plain versions on the padded
    local blocks of 2 and 4 x shards (8 and 16 probes), timed as in phase 2
@@ -102,7 +99,7 @@
    loop, the same result on every rank, stalled rows within
    max_stalled_frac, K1 and K2 launched by rank 0 on the sharded path;
    prints walls, phase seconds and the transport share of sampling.
-13. The complex64 policies on the 16^2 operator (SMALL_MATRIX built in
+12. The complex64 policies on the 16^2 operator (SMALL_MATRIX built in
    complex64, a 3-level hierarchy, K1 and K2 must launch): a crippled solver
    must make hutchinson and mlmc raise the stall error under the default
    max_stalled_frac and report stalled rows with 1.0; 32 matched probes
@@ -110,7 +107,7 @@
    5e-3 of |tr| of the same probes solved in complex128; two float64
    refinement steps must cut the error of the deflation correction tr1 at
    least tenfold against a dense complex128 oracle.
-14. Prints the card's name and power limit, a JSON line with the kernels'
+13. Prints the card's name and power limit, a JSON line with the kernels'
    numbers (launches per path; for K1 and K2 per_site_kernel_ms, device_ms,
    per_site_device_ms, host_us and per_site_host_us), and as the last line
    {"ok": true, "device": {...}}.
@@ -890,48 +887,6 @@ def check_checkpoint_resume(device) -> None:
                            f"uninterrupted run, {diff_dev:.3e} from the device-resident loop")
 
 
-def time_fused_precond_matvec(device) -> None:
-    """Phase 11: one 128-probe batch of the G102 sampling solve, with the
-    precond + matvec pair and with the fused precond_matvec form, in turns
-    (pair, fused, fused, pair) after one warm-up of each."""
-    import torch
-
-    from deflatedmlmc_schwinger_tpu_torch.io import load_operator
-    from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, setup_hierarchy
-    from deflatedmlmc_schwinger_tpu_torch.solvers import fgmres
-    from deflatedmlmc_schwinger_tpu_torch.trace.probes import make_probe_source
-
-    cfg = flagship_cfg()
-    op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims, dtype=cfg.dtype,
-                          device=device)
-    solver = MGSolver(setup_hierarchy(op, cfg), cfg.solver)
-    b = make_probe_source("torch", cfg.seed, device)(0, cfg.probe_batch, op.n, cfg.dtype)
-    kw = dict(tol=cfg.solver.effective_tol(cfg.function_tol, cfg.dtype),
-              restart=cfg.solver.restart, max_restarts=cfg.solver.max_restarts)
-    forms = {"pair": dict(precond=solver.precond(0)),
-             "fused": dict(matvec_precond=solver.precond_matvec(0))}
-
-    def run(form):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fgmres(solver.matvec(0), b, **forms[form], **kw)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0), res
-
-    ref = {form: run(form)[1] for form in forms}                 # warm-up
-    if not torch.equal(ref["pair"].iters, ref["fused"].iters):
-        raise RuntimeError("the fused precond_matvec form changes the iteration counts")
-    times = {form: [] for form in forms}
-    for form in ("pair", "fused", "fused", "pair", "pair", "fused"):
-        times[form].append(run(form)[0])
-    dx = float((ref["pair"].x - ref["fused"].x).abs().max() / ref["pair"].x.abs().max())
-    print(f"[fused] G102 shapes, one batch of {cfg.probe_batch} probes, "
-          f"{int(ref['pair'].iters.sum())} outer iterations in both forms "
-          f"(max {int(ref['pair'].iters.max())}), x differs by {dx:.3e} relative: "
-          + "; ".join(f"{form} " + ", ".join(f"{t:.2f}" for t in ts) + " ms"
-                      for form, ts in times.items()))
-
-
 def dense_displaced_trace(device):
     """Phase 5: the exact tr(D^{-1} Pi^T) = sum_j (D^{-1})[(j - d) % N, j] of
     the flagship operator, in complex128 on the card: D assembled column by
@@ -968,7 +923,7 @@ def dense_displaced_trace(device):
     return value
 
 
-# ---- phase 12: several ranks on the one card ---------------------------------
+# ---- phase 11: several ranks on the one card ---------------------------------
 
 X_SHARDS = (2, 4)
 SOLVE_TOL_FACTOR = 10.0      # sharded x within this many solve tolerances
@@ -1193,7 +1148,7 @@ def run_g302_ranks(label: str, devices: int, x_shards: int, cfg, reference) -> d
 
 
 def check_parallel(device) -> dict:
-    """Phase 12. Returns dict(kernels=the padded-block rows, counts={path:
+    """Phase 11. Returns dict(kernels=the padded-block rows, counts={path:
     rank 0's launches})."""
     import numpy as np
 
@@ -1280,7 +1235,7 @@ def check_parallel(device) -> dict:
     return dict(kernels=padded, counts=counts)
 
 
-# ---- phase 13: the complex64 policies on the 16^2 operator --------------------
+# ---- phase 12: the complex64 policies on the 16^2 operator --------------------
 
 # the 3-level 16^2 hierarchy of the JAX package's bias, refinement and stall tests
 POLICY_LEVELS = dict(matrix=SMALL_MATRIX, mass=SMALL_MASS, latt_dims=(16, 16),
@@ -1292,7 +1247,7 @@ REFINE_CUT = 0.1                              # error after 2 refinement steps /
 
 
 def check_complex64_policies(device, exact16: complex) -> dict:
-    """Phase 13: the estimator policies that guard the trace against bias,
+    """Phase 12: the estimator policies that guard the trace against bias,
     in complex64 on SMALL_MATRIX (a complex64 operator) through K1 and K2.
 
     * Stall: with a crippled solver (4 Arnoldi steps, one cycle, against
@@ -1487,7 +1442,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     check_checkpoint_resume(device)
-    time_fused_precond_matvec(device)
     torch.cuda.empty_cache()
     ranks = check_parallel(device)
     kernels.update(ranks["kernels"])

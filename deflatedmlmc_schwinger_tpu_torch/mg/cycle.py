@@ -13,13 +13,11 @@ runs the einsum matvec and the plain recurrence.
 Two smoothers share one interface (``smooth``, ``smooth_residual``):
 ``PolySmoother`` (fixed GMRES residual polynomial, no inner products) and
 ``GmresSmoother`` (k-step GMRES from zero, the default of SolverConfig).
-``MGSolver.precond_matvec`` is the fused (z, A z) form of the V-cycle; it is
-tested equal to the precond + matvec pair and not used by ``solve``.
 
 On a CUDA device the levels below the fine stencil level (a fixed sequence
 of K4 launches and small einsum launches, with no host read) replay as one
-CUDA graph per input shape (``CycleGraphs``); the fine level's kernels stay
-eager.
+CUDA graph per input shape (``CycleGraphs``, over utils/graphs.py
+``GraphCache``); the fine level's kernels stay eager.
 """
 
 from __future__ import annotations
@@ -40,7 +38,8 @@ from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import (
     _norm,
     fgmres,
 )
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import graph_calls, span
+from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache, GraphPool
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import span
 
 
 def _solve_hpd_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -227,14 +226,14 @@ def _coarsest_solve(coarsest_inv: torch.Tensor) -> Callable:
     return solve
 
 
-def _level_step(lev, sm, inner: Callable, with_residual: bool, level: int) -> Callable:
+def _level_step(lev, sm, inner: Callable, level: int) -> Callable:
     """One level of the V-cycle around ``inner``, the cycle over the levels
     below it: pre-smooth from zero with the smoothed residual and restrict
     (span ``vcycle.l{level}.down``), then prolongate-correct, residual and
     post-smooth (``vcycle.l{level}.up``)."""
     down, up = f"vcycle.l{level}.down", f"vcycle.l{level}.up"
 
-    def step(b: torch.Tensor):
+    def step(b: torch.Tensor) -> torch.Tensor:
         with span(down):
             x, r = sm.smooth_residual(lev.op, b)
             bc = lev.P.apply_adjoint(r)
@@ -242,103 +241,41 @@ def _level_step(lev, sm, inner: Callable, with_residual: bool, level: int) -> Ca
         with span(up):
             x = x + lev.P.apply(xc)
             r = residual(lev.op, b, x)
-            if with_residual:
-                dx, out_res = sm.smooth_residual(lev.op, r)
-                return x + dx, out_res
             return x + sm.smooth(lev.op, r)
 
     return step
 
 
-class GraphPool:
-    """The capture stream and the device memory pool that the CUDA graphs of
-    one solver share; both are made at its first capture."""
-
-    def __init__(self):
-        self.stream = None
-        self.handle = None
-
-
 class CycleGraphs:
     """A coarse V-cycle (``fn``, levels >= 1: block stencils, dense
     operators, smoothers without collectives) replayed as one captured
-    ``torch.cuda.CUDAGraph`` per (device, dtype, shape) of its input.
+    ``torch.cuda.CUDAGraph`` per (device, dtype, shape) of its input, at
+    most ``MAX_SHAPES`` of them (utils/graphs.py ``GraphCache``: a shape's
+    first call eager, which warms cuBLAS up, its second captured, later
+    calls replayed on a copy of the input and returning a clone of the
+    output). CPU inputs run eagerly. The graphs live in this object, which
+    the V-cycle closure that holds the levels owns (MGSolver caches the
+    closures).
 
-    A shape's first call runs eagerly (and warms cuBLAS up); its second
-    captures on the pool's side stream after one more eager run there, then
-    replays; later calls copy the input into the graph's static input,
-    replay, and return a clone of the static output, so that the next replay
-    cannot overwrite what a caller still holds. CPU inputs, and shapes past
-    ``MAX_SHAPES`` captured ones, run eagerly. A graph holds the pointers of
-    the level tensors it read: it lives in this object, which the V-cycle
-    closure that holds those levels owns (MGSolver caches the closures).
-
-    Counted in utils/timer.py ``graph_calls`` (``vcycle.graph``): ``captures``,
-    ``replays`` (a capturing call replays too) and ``eager`` calls. A replay
-    is one ``vcycle.l{l}.graph`` span (l the first level), which the span
-    pass attributes to the coarse levels; the per-level spans appear on
-    eager calls only."""
+    Counted under ``vcycle.graph`` in utils/timer.py ``graph_calls``. A
+    replay is one ``vcycle.l{l}.graph`` span (l the first level), which the
+    span pass attributes to the coarse levels; the per-level spans appear on
+    eager and capturing calls only."""
 
     MAX_SHAPES = 4
 
     def __init__(self, fn: Callable, first_level: int, pool: GraphPool):
         self.fn = fn
         self.name = f"vcycle.l{first_level}.graph"
-        self.pool = pool
-        self._seen = set()
-        self._graphs: Dict[tuple, tuple] = {}
+        self.cache = GraphCache("vcycle.graph", pool, self.MAX_SHAPES)
 
-    def _route(self, key) -> str:
-        """What a call with an input of this key does: "replay", "capture"
-        or "eager"."""
-        if key in self._graphs:
-            return "replay"
-        if key not in self._seen:
-            self._seen.add(key)
-            return "eager"
-        return "capture" if len(self._graphs) < self.MAX_SHAPES else "eager"
-
-    def __call__(self, b: torch.Tensor):
-        if b.is_cuda:
-            key = (b.device, b.dtype, tuple(b.shape))
-            route = self._route(key)
-            if route == "capture":
-                self._graphs[key] = self._capture(b)
-                graph_calls["captures"] += 1
-                route = "replay"
-            if route == "replay":
-                graph_calls["replays"] += 1
-                graph, static_in, static_out = self._graphs[key]
-                with span(self.name):
-                    static_in.copy_(b)
-                    graph.replay()
-                    if isinstance(static_out, tuple):
-                        return tuple(t.clone() for t in static_out)
-                    return static_out.clone()
-        graph_calls["eager"] += 1
-        return self.fn(b)
-
-    def _capture(self, b: torch.Tensor) -> tuple:
-        """PyTorch's side-stream recipe: warm up on the capture stream, then
-        capture into the pool shared with the solver's other graphs."""
-        pool = self.pool
-        with torch.cuda.device(b.device):
-            if pool.stream is None:
-                pool.stream = torch.cuda.Stream()
-            static_in = b.clone(memory_format=torch.contiguous_format)
-            pool.stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(pool.stream):
-                self.fn(static_in)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
-                static_out = self.fn(static_in)
-        if pool.handle is None:
-            pool.handle = graph.pool()
-        return graph, static_in, static_out
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        key = (b.device, b.dtype, tuple(b.shape)) if b.is_cuda else None
+        return self.cache.run(key, self.fn, self.name, b)
 
 
 def coarse_cycle(levels, coarsest_inv: torch.Tensor, smoothers, first_level: int,
-                 with_residual: bool = False, pool: Optional[GraphPool] = None) -> Callable:
+                 pool: Optional[GraphPool] = None) -> Callable:
     """The V-cycle over ``levels`` without the ``vcycle`` span: one
     ``_level_step`` per level around the dense coarsest solve. It is a
     ``CycleGraphs`` where it can be replayed: more than one level, no
@@ -347,22 +284,17 @@ def coarse_cycle(levels, coarsest_inv: torch.Tensor, smoothers, first_level: int
     plain cycle."""
     cyc = _coarsest_solve(coarsest_inv)
     for i in reversed(range(len(levels) - 1)):
-        cyc = _level_step(levels[i], smoothers[i], cyc, with_residual and i == 0,
-                          first_level + i)
+        cyc = _level_step(levels[i], smoothers[i], cyc, first_level + i)
     if (len(levels) < 2 or any(isinstance(lev.op, StencilOperator) for lev in levels)
             or any(getattr(sm, "group", None) is not None for sm in smoothers)):
         return cyc
-    return CycleGraphs(cyc, first_level, pool or GraphPool())
+    return CycleGraphs(cyc, first_level, pool or GraphPool(coarsest_inv.device))
 
 
-def build_v_cycle(levels, coarsest_inv: torch.Tensor, smoothers,
-                  with_residual: bool = False, first_level: int = 0,
+def build_v_cycle(levels, coarsest_inv: torch.Tensor, smoothers, first_level: int = 0,
                   pool: Optional[GraphPool] = None) -> Callable:
     """V-cycle closure over an explicit level list; ``smoothers[i]`` pairs
-    with ``levels[i]``. With ``with_residual`` the cycle returns
-    (x, b - A x): the top level's post-smoother emits its own final residual
-    (free from the polynomial recurrence), so the caller's next operator
-    application is b minus that residual (MGSolver.precond_matvec).
+    with ``levels[i]``.
 
     A fine StencilOperator level is an eager step (K3 smooth with residual,
     R, then P, K2 residual, K3 post-smooth) around the sub-cycle over the
@@ -378,12 +310,12 @@ def build_v_cycle(levels, coarsest_inv: torch.Tensor, smoothers,
     replayed sub-cycle is one ``vcycle.l{l}.graph`` instead."""
     levels = list(levels)
     if len(levels) > 1 and isinstance(levels[0].op, StencilOperator):
-        sub = coarse_cycle(levels[1:], coarsest_inv, smoothers[1:], first_level + 1, pool=pool)
-        cyc = _level_step(levels[0], smoothers[0], sub, with_residual, first_level)
+        sub = coarse_cycle(levels[1:], coarsest_inv, smoothers[1:], first_level + 1, pool)
+        cyc = _level_step(levels[0], smoothers[0], sub, first_level)
     else:
-        cyc = coarse_cycle(levels, coarsest_inv, smoothers, first_level, with_residual, pool)
+        cyc = coarse_cycle(levels, coarsest_inv, smoothers, first_level, pool)
 
-    def v_cycle(b: torch.Tensor):
+    def v_cycle(b: torch.Tensor) -> torch.Tensor:
         with span("vcycle"):
             return cyc(b)
 
@@ -400,7 +332,7 @@ class MGSolver:
         self.cfg = cfg or SolverConfig()
         self._preconds: Dict[object, Callable] = {}
         # the CUDA graphs of this solver's V-cycles share one pool
-        self._graph_pool = GraphPool()
+        self._graph_pool = GraphPool(hier.coarsest_inv.device)
         self._poly_roots: Dict[int, np.ndarray] = {}
         self._derived: Dict[SolverConfig, "MGSolver"] = {}
         # outer iterations per starting level (the reference charges one
@@ -453,25 +385,6 @@ class MGSolver:
                 self._smoothers(level), first_level=level, pool=self._graph_pool,
             )
         return self._preconds[level]
-
-    def precond_matvec(self, level: int = 0) -> Callable:
-        """v -> (z, A z) with z the V-cycle of v, in one pass: the V-cycle
-        emits its own final residual r = v - A z, so A z is the subtraction
-        v - r and the outer Arnoldi step needs no operator application
-        (solvers/fgmres.py ``matvec_precond``). Algebraically equal to the
-        precond + matvec pair; ``solve`` does not use it."""
-        key = ("pm", level)
-        if key not in self._preconds:
-            vc = build_v_cycle(list(self.hier.levels)[level:], self.hier.coarsest_inv,
-                               self._smoothers(level), with_residual=True,
-                               first_level=level, pool=self._graph_pool)
-
-            def pm(v: torch.Tensor):
-                z, r = vc(v)
-                return z, v - r
-
-            self._preconds[key] = pm
-        return self._preconds[key]
 
     def solve(
         self,

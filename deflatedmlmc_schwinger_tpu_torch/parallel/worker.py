@@ -152,8 +152,9 @@ def run_entry(name: str, device: str = "cuda"):
     out["phase_seconds"] = dict(result["timer"].totals)
     out["transport_seconds"] = dict(result["timer"].transport)
     out["host_read_seconds"] = dict(result["timer"].host_read)
-    out["graph_calls"] = {k: dict(v) for k, v in result["timer"].graphs.items()}
-    out["fgmres_graph_calls"] = {k: dict(v) for k, v in result["timer"].fgmres_graphs.items()}
+    graphs = result["timer"].graphs
+    out["graph_calls"] = {k: dict(v["vcycle.graph"]) for k, v in graphs.items()}
+    out["fgmres_graph_calls"] = {k: dict(v["fgmres.graph"]) for k, v in graphs.items()}
     out["kernel_launches"] = stencil_kernels.launch_counts()
     out["yardstick_launches"] = stencil_kernels.yardstick_counts()
     out["block_launches"] = block_kernels.launch_counts()

@@ -68,9 +68,9 @@ def result_to_json(cfg: TraceConfig, result: Dict, example: str) -> str:
         # reads of device values (utils/timer.py host_read), its V-cycle
         # graph calls (captures, replays, eager; mg/cycle.py CycleGraphs) and
         # its FGMRES graph calls (solvers/fgmres.py KrylovWorkspace)
+        graphs = result["timer"].graphs
         out["phase_seconds"] = dict(result["timer"].totals)
         out["host_read_seconds"] = dict(result["timer"].host_read)
-        out["graph_calls"] = {k: dict(v) for k, v in result["timer"].graphs.items()}
-        out["fgmres_graph_calls"] = {k: dict(v)
-                                     for k, v in result["timer"].fgmres_graphs.items()}
+        out["graph_calls"] = {k: dict(v["vcycle.graph"]) for k, v in graphs.items()}
+        out["fgmres_graph_calls"] = {k: dict(v["fgmres.graph"]) for k, v in graphs.items()}
     return json.dumps(out)

@@ -28,9 +28,10 @@ columns), each step's preconditioner and operator, the cycle's true
 residual and the host reads run eagerly; FGMRES's own work, each step's
 tail (Gram-Schmidt, rotations, residual estimates) and each cycle's end
 (back substitution, x update), reads and writes only the workspace and, on
-a CUDA device, replays as CUDA graphs keyed by shape and step index, with
-the same kernels on the same shapes as the eager calls. Solves return
-copies of the workspace's x and iteration counts.
+a CUDA device, replays as CUDA graphs keyed by shape and step index
+(utils/graphs.py ``GraphCache``), with the same kernels on the same shapes
+as the eager calls. Solves return copies of the workspace's x and
+iteration counts.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import fgmres_graph_calls, host_read, span
+from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache, GraphPool
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read, span
 
 
 class FGMRESResult(NamedTuple):
@@ -115,15 +117,12 @@ class KrylovWorkspace:
     On a CUDA device (``graphable``) FGMRES's own work, each step tail and
     each cycle end (``_step_tail``, ``_cycle_end``: they read and write only
     these buffers), replays as one captured ``torch.cuda.CUDAGraph`` per
-    key ("step", j) or ("end", j). A key's first call runs eagerly; its
-    second runs eagerly on the workspace's side stream, which applies it
-    once and warms that stream up, and is then captured there into the
-    workspace's memory pool without being run again; later calls replay on
-    the current stream. Counted in utils/timer.py ``fgmres_graph_calls``
-    (the ``fgmres.graph`` counter): each call is one of ``captures``,
-    ``replays`` and ``eager``. A replay is one ``fgmres.step.graph`` or
-    ``fgmres.end.graph`` span; ``fgmres.mgs`` and ``fgmres.givens`` appear
-    on eager calls only."""
+    key ("step", j) or ("end", j) (``graphs``, a utils/graphs.py
+    ``GraphCache`` with this workspace's own side stream and memory pool:
+    first call eager, second captured, later ones replayed). Counted under
+    ``fgmres.graph`` in utils/timer.py ``graph_calls``. A replay is one
+    ``fgmres.step.graph`` or ``fgmres.end.graph`` span; ``fgmres.mgs`` and
+    ``fgmres.givens`` appear on eager and capturing calls only."""
 
     def __init__(self, B: int, n: int, m: int, cdtype: torch.dtype, rdtype: torch.dtype,
                  device, graphable: bool):
@@ -138,55 +137,13 @@ class KrylovWorkspace:
         self.w, self.x = buf((B, n)), buf((B, n))
         self.graphable = graphable
         self.busy = False
-        self._seen = set()
-        self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
-        self._stream = None
-        self._pool = None
-
-    def _route(self, key) -> str:
-        """What a call of this key does: "replay", "capture" or "eager"."""
-        if not self.graphable:
-            return "eager"
-        if key in self._graphs:
-            return "replay"
-        if key not in self._seen:
-            self._seen.add(key)
-            return "eager"
-        return "capture"
+        # keys are bounded by the restart length
+        self.graphs = GraphCache("fgmres.graph", GraphPool(device), max_keys=None)
 
     def run(self, key: tuple, name: str, fn: Callable[[], None]) -> None:
         """Apply ``fn`` (a step tail or a cycle end over these buffers) once,
-        eagerly, by a capturing call or by a replay of the key's graph."""
-        route = self._route(key)
-        fgmres_graph_calls["eager" if route == "eager" else route + "s"] += 1
-        if route == "replay":
-            with span(name):
-                self._graphs[key].replay()
-        elif route == "capture":
-            self._graphs[key] = self._capture(fn)
-        else:
-            fn()
-
-    def _capture(self, fn: Callable[[], None]) -> torch.cuda.CUDAGraph:
-        """``fn`` run once on the side stream, then recorded there (a capture
-        runs nothing): PyTorch's side-stream recipe with the warm-up as the
-        call's one application."""
-        with torch.cuda.device(self.V.device):
-            if self._stream is None:
-                self._stream = torch.cuda.Stream()
-            self._stream.wait_stream(torch.cuda.current_stream())
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(self._stream):
-                fn()
-                graph.capture_begin(pool=self._pool)
-                try:
-                    fn()
-                finally:
-                    graph.capture_end()
-            torch.cuda.current_stream().wait_stream(self._stream)
-        if self._pool is None:
-            self._pool = graph.pool()
-        return graph
+        through ``graphs`` where this workspace is graphable, else eagerly."""
+        self.graphs.run(key if self.graphable else None, fn, name)
 
 
 # the workspaces held for reuse, one per solve shape, at most MAX_WORKSPACES
@@ -277,8 +234,7 @@ def _cycle_end(ws: KrylovWorkspace, j: int, tiny: float) -> None:
 def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  x0: torch.Tensor, tol_abs: torch.Tensor, restart: int,
                  max_restarts: int, stall_ratio: Optional[float],
-                 stall_cycles: int, matvec_precond: Optional[Callable] = None,
-                 group=None, pred_group=None):
+                 stall_cycles: int, group=None, pred_group=None):
     m = restart
     tiny = torch.finfo(tol_abs.dtype).tiny
     with _workspace(b, m, tol_abs.dtype, group) as ws:
@@ -305,13 +261,8 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                 while j < m and _gany((ws.res > ws.tol_abs).any(), pred_group,
                                       "fgmres.step"):
                     with span("fgmres.step"):
-                        if matvec_precond is not None:
-                            # the V-cycle's own final residual gives A z = v - r,
-                            # which saves this step's operator application
-                            z, w = matvec_precond(V[j])
-                        else:
-                            z = precond(V[j])
-                            w = matvec(z)
+                        z = precond(V[j])
+                        w = matvec(z)
                         Z[j] = z
                         ws.w.copy_(w)
                         ws.run(("step", j), "fgmres.step.graph",
@@ -340,7 +291,6 @@ def fgmres(
     restart: int = 20,
     max_restarts: int = 10,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-    matvec_precond: Optional[Callable] = None,
     x0: Optional[torch.Tensor] = None,
     stall_ratio: Optional[float] = 0.9,
     stall_cycles: int = 2,
@@ -348,10 +298,7 @@ def fgmres(
     pred_group=None,
 ) -> FGMRESResult:
     """Solve A x = b for a batch of complex right-hand sides b (B, n).
-    ``stall_ratio=None`` disables the stall cutoff. ``matvec_precond``: an
-    optional fused v -> (z, A z) with z = M v; when given it replaces the
-    precond + matvec pair of every Arnoldi step (the true residuals at the
-    restart boundaries still use ``matvec``).
+    ``stall_ratio=None`` disables the stall cutoff.
 
     ``group``: set when the vector axis holds this rank's part of a
     lattice-sharded vector; all norms and inner products then sum their
@@ -372,7 +319,7 @@ def fgmres(
         x, res, iters, cycles = _fgmres_impl(
             matvec, precond, b, x0, tol_abs, int(restart), int(max_restarts),
             None if stall_ratio is None else float(stall_ratio), int(stall_cycles),
-            matvec_precond, group, pred_group,
+            group, pred_group,
         )
         return FGMRESResult(x=x, resnorm=res, bnorm=bnorm, iters=iters,
                             cycles=cycles, stalled=res > tol_abs)

@@ -7,8 +7,7 @@ phase edge when a CUDA device is in use, so a phase's time includes its
 device work. Beside each phase's seconds it keeps the seconds this process
 spent in the transport helper of parallel/distributed.py during the phase
 (0 without a process group), the seconds it spent blocked in counted host
-reads, its V-cycle graph calls (``graphs``) and its FGMRES graph calls
-(``fgmres_graphs``).
+reads, and its CUDA-graph calls per counter (``graphs[phase][name]``).
 
 ``span(name)``: a range at a layer boundary of the sampling path
 (estimator batch, FGMRES solve, cycle and Arnoldi step, V-cycle level, ...).
@@ -25,15 +24,12 @@ sampling path goes through it. It counts the read under ``site`` in
 keeps a range's name and drops its string argument, so the site is part of
 the name).
 
-``graph_calls``, the ``vcycle.graph`` counter: how often the coarse
-V-cycle's CUDA graphs engage (mg/cycle.py ``CycleGraphs``): ``captures``,
-``replays`` and ``eager`` calls, always on; the hit share is
-replays / (replays + eager).
-
-``fgmres_graph_calls``, the ``fgmres.graph`` counter: how often FGMRES's
-step tails and cycle ends replay as CUDA graphs (solvers/fgmres.py
-``KrylovWorkspace``): each call is one of ``captures``, ``replays`` and
-``eager``, always on; the hit share is again replays / (replays + eager).
+``graph_calls``: how often each CUDA-graph cache (utils/graphs.py
+``GraphCache``) captured, replayed or ran eagerly, always on, one counter
+per owner: ``vcycle.graph``, the coarse V-cycle's (mg/cycle.py
+``CycleGraphs``), and ``fgmres.graph``, FGMRES's step tails and cycle ends
+(solvers/fgmres.py ``KrylovWorkspace``). Each call is one of ``captures``,
+``replays`` and ``eager``; the hit share is replays / (replays + eager).
 """
 
 from __future__ import annotations
@@ -51,15 +47,11 @@ _spans = False
 # site -> [reads, nanoseconds blocked] since the last reset_host_reads()
 host_reads: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
 
-# the vcycle.graph counter: calls of a graphable V-cycle (mg/cycle.py
-# CycleGraphs) that captured, replayed or ran eagerly, since the last
-# reset_graph_calls()
-graph_calls: Dict[str, int] = dict(captures=0, replays=0, eager=0)
-
-# the fgmres.graph counter: FGMRES step tails and cycle ends (solvers/fgmres.py
-# KrylovWorkspace) that captured, replayed or ran eagerly, since the last
-# reset_fgmres_graph_calls()
-fgmres_graph_calls: Dict[str, int] = dict(captures=0, replays=0, eager=0)
+# the graph counters and how PhaseTimer prints them; name -> {captures,
+# replays, eager} since the last reset_graph_calls()
+_GRAPH_LABELS = {"vcycle.graph": "V-cycle", "fgmres.graph": "FGMRES"}
+graph_calls: Dict[str, Dict[str, int]] = {
+    name: dict(captures=0, replays=0, eager=0) for name in _GRAPH_LABELS}
 
 
 def set_spans(on: bool) -> None:
@@ -113,11 +105,8 @@ def host_read_totals() -> Dict[str, float]:
 
 
 def reset_graph_calls() -> None:
-    graph_calls.update(dict.fromkeys(graph_calls, 0))
-
-
-def reset_fgmres_graph_calls() -> None:
-    fgmres_graph_calls.update(dict.fromkeys(fgmres_graph_calls, 0))
+    for calls in graph_calls.values():
+        calls.update(dict.fromkeys(calls, 0))
 
 
 class PhaseTimer:
@@ -126,10 +115,8 @@ class PhaseTimer:
         self.counts: Dict[str, int] = defaultdict(int)
         self.transport: Dict[str, float] = defaultdict(float)
         self.host_read: Dict[str, float] = defaultdict(float)
-        self.graphs: Dict[str, Dict[str, int]] = defaultdict(
-            lambda: dict.fromkeys(graph_calls, 0))
-        self.fgmres_graphs: Dict[str, Dict[str, int]] = defaultdict(
-            lambda: dict.fromkeys(fgmres_graph_calls, 0))
+        self.graphs: Dict[str, Dict[str, Dict[str, int]]] = defaultdict(
+            lambda: {name: dict.fromkeys(calls, 0) for name, calls in graph_calls.items()})
         self.device = None if device is None else torch.device(device)
 
     def _sync(self) -> None:
@@ -146,8 +133,7 @@ class PhaseTimer:
             t0 = time.perf_counter()
             moved0 = transport_stats["seconds"]
             read0 = host_read_totals()["seconds"]
-            graphs0 = dict(graph_calls)
-            fgmres0 = dict(fgmres_graph_calls)
+            graphs0 = {n: dict(calls) for n, calls in graph_calls.items()}
             try:
                 yield
             finally:
@@ -155,10 +141,9 @@ class PhaseTimer:
                 self.totals[name] += time.perf_counter() - t0
                 self.transport[name] += transport_stats["seconds"] - moved0
                 self.host_read[name] += host_read_totals()["seconds"] - read0
-                for k, n in graph_calls.items():
-                    self.graphs[name][k] += n - graphs0[k]
-                for k, n in fgmres_graph_calls.items():
-                    self.fgmres_graphs[name][k] += n - fgmres0[k]
+                for counter, calls in graph_calls.items():
+                    for k, n in calls.items():
+                        self.graphs[name][counter][k] += n - graphs0[counter][k]
                 self.counts[name] += 1
 
     def reset(self) -> None:
@@ -167,17 +152,15 @@ class PhaseTimer:
         self.transport.clear()
         self.host_read.clear()
         self.graphs.clear()
-        self.fgmres_graphs.clear()
 
     def __str__(self) -> str:
         lines = ["\nTimings specific to computations:"]
         for name in sorted(self.totals):
             line = f" -- {name} : {self.totals[name]:.4f} s ({self.counts[name]} calls)"
-            for what, calls in (("V-cycle", self.graphs), ("FGMRES", self.fgmres_graphs)):
-                g = calls.get(name)
-                if g and (g["captures"] or g["replays"]):
-                    line += (f", {what} graphs {g['captures']} captured, {g['replays']} "
-                             f"replayed, {g['eager']} eager")
+            for counter, g in self.graphs.get(name, {}).items():
+                if g["captures"] or g["replays"]:
+                    line += (f", {_GRAPH_LABELS[counter]} graphs {g['captures']} captured, "
+                             f"{g['replays']} replayed, {g['eager']} eager")
             if self.host_read.get(name):
                 line += f", {self.host_read[name]:.4f} s in host reads"
             lines.append(line)

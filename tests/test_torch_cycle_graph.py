@@ -1,20 +1,21 @@
 """The V-cycle as an eager fine-level step around a coarse sub-cycle, and the
 sub-cycle's CUDA graphs (mg/cycle.py ``build_v_cycle``, ``coarse_cycle``,
-``CycleGraphs``; the counter ``graph_calls`` in utils/timer.py).
+``CycleGraphs``; the ``vcycle.graph`` counter of ``graph_calls`` in
+utils/timer.py). The graph cache itself and the counters are held in
+tests/test_torch_graphs.py.
 
 On the CPU, port only (no JAX): the split cycle gives the bits of the one
-loop it replaced, for both smoothers, starting on levels 0 and 1, with and
-without the emitted residual; CPU calls run eagerly and count as eager; the
-counter resets and ``PhaseTimer`` keeps it per phase; the capture policy
-(first call of a shape eager, capture on the second, at most ``MAX_SHAPES``
-graphs, eager past them); which cycles are graphed at all.
+loop it replaced, for both smoothers, starting on levels 0 and 1, in
+complex128 and complex64; CPU calls run eagerly and count as eager; which
+cycles are graphed at all.
 
 On the card (marked ``card``, skipped without one; this file imports no JAX,
 so run it without the JAX package's conftest:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cycle_graph.py``),
 at the shapes of the 128^2 sampling cells (schwinger128 profile, batches of
-128, complex64): the replayed sub-cycle against the eager one, replays on
-different inputs with an output held across the next replay, and a whole
+128, complex64): the capturing call's output (the side stream's warm-up)
+and the replayed sub-cycle against the eager one, replays on different
+inputs with an output held across the next replay, and a whole
 ``MGSolver.solve`` with graphs against one without.
 """
 
@@ -27,6 +28,7 @@ from deflatedmlmc_schwinger_tpu_torch.gateway import set_params  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.io import generate_operator  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, cycle  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.utils import timer  # noqa: E402
+from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import setup_or_load_hierarchy  # noqa: E402
 
 L = 32          # CPU lattice: levels of 2048, 512, 128 and 32 unknowns
@@ -37,9 +39,10 @@ def _quiet(*args, **kwargs):
     pass
 
 
-def _hierarchy(n: int, device):
+def _hierarchy(n: int, device, dtype=torch.complex64):
     cfg = set_params("schwinger128").replace(
-        matrix=f"generated:{n}x{n}:beta=5.0:seed=11", mass=-0.17, latt_dims=(n, n))
+        matrix=f"generated:{n}x{n}:beta=5.0:seed=11", mass=-0.17, latt_dims=(n, n),
+        dtype=dtype)
     op = generate_operator(n, n, cfg.mass, beta=5.0, seed=11, dtype=cfg.dtype, device=device)
     return cfg, op, setup_or_load_hierarchy(op, cfg, None, _quiet)
 
@@ -51,9 +54,8 @@ def _randc(shape, seed, dtype, device="cpu"):
     return v.to(dtype=dtype, device=device)
 
 
-def _monolithic(levels, coarsest_inv, smoothers, with_residual):
+def _monolithic(levels, coarsest_inv, smoothers):
     """The V-cycle as one loop over every level, as it was before the split."""
-    n_up = len(levels) - 1
 
     def v_cycle(b):
         bs, xs = [b], []
@@ -62,17 +64,11 @@ def _monolithic(levels, coarsest_inv, smoothers, with_residual):
             xs.append(x)
             bs.append(lev.P.apply_adjoint(r))
         xc = bs[-1] @ coarsest_inv.T
-        out_res = None
-        for idx, (lev, sm, x, bf) in enumerate(zip(
-                levels[-2::-1], smoothers[::-1], xs[::-1], bs[-2::-1])):
+        for lev, sm, x, bf in zip(levels[-2::-1], smoothers[::-1], xs[::-1], bs[-2::-1]):
             x = x + lev.P.apply(xc)
             r = cycle.residual(lev.op, bf, x)
-            if with_residual and idx == n_up - 1:
-                dx, out_res = sm.smooth_residual(lev.op, r)
-                xc = x + dx
-            else:
-                xc = x + sm.smooth(lev.op, r)
-        return (xc, out_res) if with_residual else xc
+            xc = x + sm.smooth(lev.op, r)
+        return xc
 
     return v_cycle
 
@@ -97,24 +93,27 @@ def small():
     return _hierarchy(L, "cpu")
 
 
-@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.fixture(scope="module")
+def small_c128():
+    return _hierarchy(L, "cpu", torch.complex128)
+
+
+@pytest.mark.parametrize("dtype", ["complex128", "complex64"])
 @pytest.mark.parametrize("level", [0, 1])
 @pytest.mark.parametrize("smoother", ["poly", "gmres"])
-def test_split_cycle_equals_the_monolithic_one(small, smoother, level, with_residual):
+def test_split_cycle_equals_the_monolithic_one(request, smoother, level, dtype):
     """Bit for bit on the CPU: the fine-level step around the sub-cycle (level
     0), or the sub-cycle whole (level 1), against the one loop."""
-    cfg, _, hier = small
+    cfg, _, hier = request.getfixturevalue("small_c128" if dtype == "complex128" else "small")
+    assert hier.coarsest_inv.dtype == getattr(torch, dtype)
     solver = MGSolver(hier, SolverConfig(restart=40, smoother=smoother, smooth_iters=4
                                          if smoother == "gmres" else 16))
     levels, sms = list(hier.levels)[level:], solver._smoothers(level)
     b = _randc((3, hier.sizes()[level]), 5 + level, cfg.dtype)
-    got = cycle.build_v_cycle(levels, hier.coarsest_inv, sms, with_residual=with_residual,
-                              first_level=level)(b)
-    want = _monolithic(levels, hier.coarsest_inv, sms, with_residual)(b)
-    for g, w in zip(got, want) if with_residual else [(got, want)]:
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    if not with_residual:
-        assert torch.equal(solver.precond(level)(b), want)
+    got = cycle.build_v_cycle(levels, hier.coarsest_inv, sms, first_level=level)(b)
+    want = _monolithic(levels, hier.coarsest_inv, sms)(b)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(solver.precond(level)(b), want)
 
 
 @pytest.mark.parametrize("level", [0, 1])
@@ -124,47 +123,7 @@ def test_cpu_calls_run_eagerly_and_count_as_eager(small, level):
     b = _randc((2, hier.sizes()[level]), 9, hier.coarsest_inv.dtype)
     outs = [solver.precond(level)(b) for _ in range(3)]
     assert all(torch.equal(o, outs[0]) for o in outs)
-    assert timer.graph_calls == dict(captures=0, replays=0, eager=3)
-
-
-def test_graph_counter_resets_and_phase_timer_keeps_it_per_phase():
-    t = timer.PhaseTimer()
-    with t.phase("sampling"):
-        for kind, n in (("captures", 1), ("replays", 40), ("eager", 2)):
-            timer.graph_calls[kind] += n
-    with t.phase("rough_trace"):
-        timer.graph_calls["eager"] += 1
-    assert timer.graph_calls == dict(captures=1, replays=40, eager=3)
-    assert t.graphs["sampling"] == dict(captures=1, replays=40, eager=2)
-    assert t.graphs["rough_trace"] == dict(captures=0, replays=0, eager=1)
-    lines = str(t).splitlines()
-    # shown where the mechanism engaged; an eager-only phase prints as before
-    assert any(ln.startswith(" -- sampling : ")
-               and ln.endswith("V-cycle graphs 1 captured, 40 replayed, 2 eager")
-               for ln in lines)
-    assert any(ln.startswith(" -- rough_trace : ") and ln.endswith("(1 calls)")
-               for ln in lines)
-    timer.reset_graph_calls()
-    assert timer.graph_calls == dict(captures=0, replays=0, eager=0)
-    t.reset()
-    assert dict(t.graphs) == {}
-
-
-def test_capture_policy():
-    """The first call of a shape runs eagerly, the second captures, later
-    ones replay; past MAX_SHAPES graphs every new shape stays eager."""
-    g = cycle.CycleGraphs(lambda b: b, 1, cycle.GraphPool())
-    assert g.name == "vcycle.l1.graph"
-    keys = [("cuda:0", torch.complex64, (128, n)) for n in range(g.MAX_SHAPES + 2)]
-    for k in keys[:g.MAX_SHAPES]:
-        assert g._route(k) == "eager"
-        assert g._route(k) == "capture"
-        g._graphs[k] = object()                 # what __call__ stores after a capture
-        assert g._route(k) == "replay"
-    for k in keys[g.MAX_SHAPES:]:
-        assert [g._route(k) for _ in range(3)] == ["eager"] * 3
-    assert g._route(keys[0]) == "replay"
-    assert len(g._graphs) == g.MAX_SHAPES
+    assert timer.graph_calls["vcycle.graph"] == dict(captures=0, replays=0, eager=3)
 
 
 @pytest.mark.parametrize("case", ["coarse", "with_fine", "coarsest_only", "group"])
@@ -222,12 +181,14 @@ def test_replayed_sub_cycle_matches_eager_on_the_card(flagship):
     assert isinstance(g, cycle.CycleGraphs)
     b = _randc((B_CARD, hier.sizes()[1]), 1, cfg.dtype, hier.coarsest_inv.device)
     eager = g.fn(b)
-    outs = [g(b) for _ in range(3)]             # eager, capture and replay, replay
-    assert timer.graph_calls == dict(captures=1, replays=2, eager=1)
+    outs = [g(b) for _ in range(4)]             # eager, capture, replay, replay
+    assert timer.graph_calls["vcycle.graph"] == dict(captures=1, replays=2, eager=1)
     errs = [_rel(o, eager) for o in outs]
-    print(f"replayed vs eager sub-cycle at ({B_CARD}, {hier.sizes()[1]}) complex64: "
-          f"bit-identical {[torch.equal(o, eager) for o in outs]}, max relative "
-          f"difference {errs}")
+    print(f"eager, capturing and replayed calls vs the eager sub-cycle at ({B_CARD}, "
+          f"{hier.sizes()[1]}) complex64: bit-identical {[torch.equal(o, eager) for o in outs]}, "
+          f"max relative difference {errs}")
+    # the capturing call returns its warm-up's output: the eager cycle's
+    assert torch.equal(outs[0], eager) and torch.equal(outs[1], eager)
     assert max(errs) <= 1e-5
 
 
@@ -244,7 +205,7 @@ def test_replays_on_new_inputs_leave_held_outputs_alone(flagship):
     assert torch.equal(y1, held)
     assert _rel(y1, g.fn(b1)) <= 1e-5 and _rel(y2, g.fn(b2)) <= 1e-5
     assert _rel(y1, y2) > 0.1
-    assert timer.graph_calls["replays"] == 3
+    assert timer.graph_calls["vcycle.graph"] == dict(captures=1, replays=2, eager=1)
 
 
 @pytest.mark.card
@@ -255,19 +216,20 @@ def test_solve_with_graphs_equals_eager_solve_on_the_card(flagship, monkeypatch)
     b = _randc((B_CARD, op.n), 6, cfg.dtype, hier.coarsest_inv.device)
     tol = cfg.function_tol
     with monkeypatch.context() as m:
-        m.setattr(cycle.CycleGraphs, "_route", lambda self, key: "eager")
+        m.setattr(GraphCache, "_route", lambda self, key: "eager")
         ref = MGSolver(hier, cfg.solver).solve(b, tol)
-    assert timer.graph_calls["replays"] == 0
+    assert timer.graph_calls["vcycle.graph"]["replays"] == 0
     timer.reset_graph_calls()
     solver = MGSolver(hier, cfg.solver)
     solver.solve(b, tol)
     got = solver.solve(b, tol)
-    calls = timer.graph_calls
+    calls = timer.graph_calls["vcycle.graph"]
     print(f"solve of {B_CARD} probes: iterations {int(got.iters.max())} (max), x differs "
           f"by {_rel(got.x, ref.x):.3e} relative, bit-identical {torch.equal(got.x, ref.x)}; "
           f"graph calls over two solves {calls}")
     assert torch.equal(got.iters, ref.iters)
     assert _rel(got.x, ref.x) <= 1e-6
-    # one V-cycle an Arnoldi step; a solve takes at least iters.max() steps
+    # one V-cycle an Arnoldi step; a solve takes at least iters.max() steps,
+    # and each call counts once: 1 eager, 1 capture, the rest replays
     assert calls["captures"] == 1 and calls["eager"] == 1
-    assert calls["replays"] >= 2 * int(got.iters.max()) - 1
+    assert calls["replays"] >= 2 * int(got.iters.max()) - 2

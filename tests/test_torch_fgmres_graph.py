@@ -1,16 +1,18 @@
 """FGMRES split into eager parts and a graphable step tail and cycle end over
 a workspace held per solve shape (solvers/fgmres.py ``KrylovWorkspace``,
-``_workspace``; the counter ``fgmres_graph_calls`` in utils/timer.py).
+``_workspace``; the ``fgmres.graph`` counter of ``graph_calls`` in
+utils/timer.py). The graph cache itself and the counters are held in
+tests/test_torch_graphs.py.
 
 On the CPU, port only (no JAX): the restructured solve gives the bits of a
 frozen copy of the one loop it replaced (``_frozen_fgmres`` below), in
-complex128 and complex64, over one cycle and over restarts, with the fused
-``matvec_precond``, on the stall path (a crippled preconditioner) and
-through ``MGSolver.solve``; a second solve of a shape leaves the first's
-results alone; a solve nested in another of its shape runs on fresh
-buffers with the same result; the routes (CPU, a ``group`` of ranks, past
-``MAX_WORKSPACES``, the first, second and later calls of a key); the
-counter resets and ``PhaseTimer`` keeps it per phase.
+complex128 and complex64, over one cycle and over restarts, from a nonzero
+x0, on the stall path (a crippled preconditioner) and through
+``MGSolver.solve``; a second solve of a shape leaves the first's results
+alone; a solve nested in another of its shape runs on fresh buffers with
+the same result; which workspace a solve gets (CPU, a ``group`` of ranks,
+past ``MAX_WORKSPACES``) and that a workspace that cannot graph runs every
+call eagerly.
 
 On the card (marked ``card``, skipped without one; this file imports no JAX,
 so run it without the JAX package's conftest:
@@ -54,8 +56,7 @@ B_CARD = 128    # the cells' probe batch
 def _frozen_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  x0: torch.Tensor, tol_abs: torch.Tensor, restart: int,
                  max_restarts: int, stall_ratio: Optional[float],
-                 stall_cycles: int, matvec_precond: Optional[Callable] = None,
-                 group=None, pred_group=None):
+                 stall_cycles: int, group=None, pred_group=None):
     B, n = b.shape
     m = restart
     cdtype = b.dtype
@@ -84,11 +85,8 @@ def _frozen_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
         while j < m and _gany((res > tol_abs).any(), pred_group, "fgmres.step"):
             active = res > tol_abs
             iters += active.to(torch.int32)
-            if matvec_precond is not None:
-                z, w = matvec_precond(V[j])
-            else:
-                z = precond(V[j])
-                w = matvec(z)
+            z = precond(V[j])
+            w = matvec(z)
             Z[j] = z
             hcol = torch.zeros((B, m + 1), dtype=cdtype, device=dev)
             for i in range(j + 1):
@@ -141,14 +139,15 @@ def _frozen_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
 
 
 def _frozen_fgmres(matvec, b, *, tol, restart=20, max_restarts=10, precond=None,
-                   matvec_precond=None, stall_ratio=0.9, stall_cycles=2):
+                   x0=None, stall_ratio=0.9, stall_cycles=2):
     """``fgmres`` as it was, around the frozen loop."""
-    x0 = torch.zeros_like(b)
+    if x0 is None:
+        x0 = torch.zeros_like(b)
     bnorm = _norm(b)
     tol_abs = tol * bnorm
     x, res, iters, cycles = _frozen_impl(
         matvec, precond or (lambda v: v), b, x0, tol_abs, restart, max_restarts,
-        stall_ratio, stall_cycles, matvec_precond)
+        stall_ratio, stall_cycles)
     return fgmres_mod.FGMRESResult(x=x, resnorm=res, bnorm=bnorm, iters=iters,
                                    cycles=cycles, stalled=res > tol_abs)
 
@@ -167,9 +166,9 @@ def _threads():
 def _fresh(monkeypatch):
     """No workspace held from another test, and the counter at zero."""
     monkeypatch.setattr(fgmres_mod, "_workspaces", {})
-    timer.reset_fgmres_graph_calls()
+    timer.reset_graph_calls()
     yield
-    timer.reset_fgmres_graph_calls()
+    timer.reset_graph_calls()
 
 
 def _randc(shape, seed, dtype, device="cpu"):
@@ -214,7 +213,7 @@ CASES = {
                                                   stall_ratio=0.9, stall_cycles=2)),
     "c64_stall": (torch.complex64, 1e-5, dict(restart=5, max_restarts=10,
                                                stall_ratio=0.9, stall_cycles=2)),
-    "c128_fused": (torch.complex128, 1e-10, dict(restart=6, max_restarts=10)),
+    "c128_x0": (torch.complex128, 1e-10, dict(restart=6, max_restarts=10)),
 }
 
 
@@ -228,13 +227,9 @@ def test_solve_equals_the_frozen_loop(case):
     if case.endswith("stall"):
         precond = _crippled
     b = _randc((5, N), 11, dtype)
-    if case.endswith("fused"):
-        def pm(v):
-            z = precond(v)
-            return z, matvec(z)
-        kw = dict(kw, matvec_precond=pm)
-    else:
-        kw = dict(kw, precond=precond)
+    kw = dict(kw, precond=precond)
+    if case.endswith("x0"):
+        kw["x0"] = _randc((5, N), 12, dtype)
     want = _frozen_fgmres(matvec, b, tol=tol, **kw)
     got = fgmres(matvec, b, tol=tol, **kw)
     _equal(got, want)
@@ -242,9 +237,10 @@ def test_solve_equals_the_frozen_loop(case):
         assert got.cycles > 1 and not bool(got.stalled.any())
     if case.endswith("stall"):
         assert got.cycles < kw["max_restarts"] and bool(got.stalled.all())
-    steps = timer.fgmres_graph_calls["eager"] - got.cycles   # one cycle end a cycle
+    calls = timer.graph_calls["fgmres.graph"]
+    steps = calls["eager"] - got.cycles                       # one cycle end a cycle
     assert steps >= int(got.iters.max())
-    assert timer.fgmres_graph_calls["captures"] == timer.fgmres_graph_calls["replays"] == 0
+    assert calls["captures"] == calls["replays"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -319,17 +315,21 @@ def test_a_nested_solve_of_the_same_shape_runs_on_fresh_buffers():
 
 
 def test_routes():
-    """CPU solves run eagerly on the held workspace; a solve over a group of
-    ranks and a shape past MAX_WORKSPACES held ones get fresh buffers and
-    run eagerly; on a graphable workspace a key's first call is eager, its
-    second captures and later ones replay."""
+    """CPU solves run on the held workspace, which cannot graph: every call
+    of a key is eager; a solve over a group of ranks and a shape past
+    MAX_WORKSPACES held ones get fresh buffers, which cannot graph either."""
     cdt, rdt = torch.complex64, torch.float32
     b = torch.zeros((4, 8), dtype=cdt)
     with fgmres_mod._workspace(b, 5, rdt, None) as ws:
         assert fgmres_mod._workspaces[(b.device, cdt, 4, 8, 5)] is ws
-        assert not ws.graphable and ws._route(("step", 0)) == "eager"
+        assert not ws.graphable
         assert ws.V.shape == (6, 4, 8) and ws.Z.shape == (5, 4, 8)
         assert ws.H.shape == (4, 6, 5) and ws.cs.dtype == rdt and ws.iters.dtype == torch.int32
+        ran = []
+        for _ in range(3):
+            ws.run(("step", 0), "fgmres.step.graph", lambda: ran.append(1))
+        assert len(ran) == 3
+        assert timer.graph_calls["fgmres.graph"] == dict(captures=0, replays=0, eager=3)
     with fgmres_mod._workspace(b, 5, rdt, group=object()) as ws:
         assert ws not in fgmres_mod._workspaces.values() and not ws.graphable
     for n in range(9, 8 + fgmres_mod.MAX_WORKSPACES):
@@ -339,39 +339,7 @@ def test_routes():
     with fgmres_mod._workspace(torch.zeros((4, 99), dtype=cdt), 5, rdt, None) as ws:
         assert ws not in fgmres_mod._workspaces.values() and not ws.graphable
     assert len(fgmres_mod._workspaces) == fgmres_mod.MAX_WORKSPACES
-
-    g = KrylovWorkspace(2, 3, 4, cdt, rdt, "cpu", graphable=True)
-    for key in (("step", 0), ("step", 1), ("end", 2)):
-        assert g._route(key) == "eager"
-        assert g._route(key) == "capture"
-        g._graphs[key] = object()             # what run() stores after a capture
-        assert [g._route(key) for _ in range(2)] == ["replay"] * 2
-
-
-def test_fgmres_graph_counter_resets_and_phase_timer_keeps_it_per_phase():
-    t = timer.PhaseTimer()
-    with t.phase("sampling"):
-        for kind, n in (("captures", 12), ("replays", 120), ("eager", 1)):
-            timer.fgmres_graph_calls[kind] += n
-    with t.phase("rough_trace"):
-        matvec, precond = _dense(torch.complex128)
-        res = fgmres(matvec, _randc((3, N), 41, torch.complex128), tol=1e-10, restart=40,
-                     precond=precond)
-    eager = int(res.iters.max()) + 1          # one cycle: its steps and its end
-    assert timer.fgmres_graph_calls == dict(captures=12, replays=120, eager=1 + eager)
-    assert t.fgmres_graphs["sampling"] == dict(captures=12, replays=120, eager=1)
-    assert t.fgmres_graphs["rough_trace"] == dict(captures=0, replays=0, eager=eager)
-    assert t.graphs["sampling"] == dict(captures=0, replays=0, eager=0)
-    lines = str(t).splitlines()
-    assert any(ln.startswith(" -- sampling : ")
-               and ln.endswith("FGMRES graphs 12 captured, 120 replayed, 1 eager")
-               for ln in lines)
-    # an eager-only phase prints no graph counts
-    assert any(ln.startswith(" -- rough_trace : ") and "graphs" not in ln for ln in lines)
-    timer.reset_fgmres_graph_calls()
-    assert timer.fgmres_graph_calls == dict(captures=0, replays=0, eager=0)
-    t.reset()
-    assert dict(t.fgmres_graphs) == {}
+    assert KrylovWorkspace(2, 3, 4, cdt, rdt, "cpu", graphable=True).graphs.max_keys is None
 
 
 # ---- on the card ------------------------------------------------------------------
@@ -409,15 +377,16 @@ def test_graphed_solve_equals_eager_solve_on_the_card(flagship, monkeypatch):
     b = _randc((B_CARD, op.n), 6, cfg.dtype, hier.coarsest_inv.device)
     solver = MGSolver(hier, cfg.solver)
     first = solver.solve(b, cfg.function_tol)            # every key's first call
+    ws = fgmres_mod._workspaces[(b.device, b.dtype, B_CARD, op.n, cfg.solver.restart)]
     with monkeypatch.context() as m:
-        m.setattr(KrylovWorkspace, "_route", lambda self, key: "eager")
+        m.setattr(ws, "graphable", False)
         ref = solver.solve(b, cfg.function_tol)
     captured = solver.solve(b, cfg.function_tol)
     replayed = solver.solve(b, cfg.function_tol)
     print(f"solve of {B_CARD} probes: iterations {int(ref.iters.max())} (max); bit-identical "
           f"to the eager solve: captured {_solve_equal(captured, ref)}, replayed "
           f"{_solve_equal(replayed, ref)}, first solve {_solve_equal(first, ref)}; "
-          f"FGMRES graph calls {timer.fgmres_graph_calls}")
+          f"FGMRES graph calls {timer.graph_calls['fgmres.graph']}")
     for got in (captured, replayed):
         assert torch.equal(got.x, ref.x)
         assert torch.equal(got.iters, ref.iters)
@@ -435,14 +404,14 @@ def test_replays_on_new_probes_leave_earlier_results_alone(flagship):
     solver.solve(b1, cfg.function_tol), solver.solve(b1, cfg.function_tol)
     r1 = solver.solve(b1, cfg.function_tol)
     held = [t.clone() for t in (r1.x, r1.resnorm, r1.iters, r1.stalled)]
-    timer.reset_fgmres_graph_calls()
+    timer.reset_graph_calls()
     r2 = solver.solve(b2, cfg.function_tol)
     for t, h in zip((r1.x, r1.resnorm, r1.iters, r1.stalled), held):
         assert torch.equal(t, h)
     assert float((r1.x - r2.x).abs().max()) > 0.1 * float(r1.x.abs().max())
     relres = _norm(b2 - op.matvec(r2.x)) / _norm(b2)
     assert float(relres.max()) <= 1.01 * cfg.function_tol
-    assert timer.fgmres_graph_calls["replays"] > 0
+    assert timer.graph_calls["fgmres.graph"]["replays"] > 0
 
 
 @pytest.mark.card
@@ -454,9 +423,9 @@ def test_counter_over_a_shapes_first_three_solves_on_the_card(flagship):
     solver = MGSolver(hier, cfg.solver)
     seen = []
     for _ in range(3):
-        timer.reset_fgmres_graph_calls()
+        timer.reset_graph_calls()
         res = solver.solve(b, cfg.function_tol)
-        seen.append(dict(timer.fgmres_graph_calls))
+        seen.append(dict(timer.graph_calls["fgmres.graph"]))
     calls = int(res.iters.max()) + res.cycles        # steps and cycle ends
     print(f"FGMRES graph calls over three solves: {seen} ({calls} calls a solve)")
     assert seen[0] == dict(captures=0, replays=0, eager=calls)

@@ -1,16 +1,14 @@
-"""The port's GMRES smoother, the smoother-root fallback and the fused
-(z, A z) V-cycle vs the JAX package, complex128, on a non-square generated
-lattice (latt_dims (32, 64), aggregates (16, 4), dof (2, 8, 8)) with the JAX
+"""The port's GMRES smoother, the smoother-root fallback and the V-cycle vs
+the JAX package, complex128, on a non-square generated lattice (latt_dims (32, 64), aggregates (16, 4), dof (2, 8, 8)) with the JAX
 package's own hierarchy loaded into the port:
 
   * ``gmres_smoother`` to 1e-10, with one all-zero row in the batch (rows
     that FGMRES has finished ride on as zeros);
   * ``gmres_poly_roots`` (the fallback of ``MGSolver._roots_for``) to 1e-10;
-  * one V-cycle and one ``MGSolver.solve`` with ``smoother='gmres'``: equal
-    per-row iteration counts, x to 1e-9;
-  * the ``with_residual`` V-cycle emits the true residual, for both
-    smoothers, and ``fgmres(matvec_precond=)`` equals the precond + matvec
-    pair.
+  * one V-cycle with either smoother, and one ``MGSolver.solve`` with
+    ``smoother='gmres'``: equal per-row iteration counts, x to 1e-9;
+  * ``smooth_residual`` returns the true residual b - A x beside the
+    smoothing of ``smooth``, for both smoothers on levels 0 and 1.
 """
 
 import numpy as np
@@ -34,7 +32,6 @@ from deflatedmlmc_schwinger_tpu.utils.checkpoint import (  # noqa: E402
 )
 from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, cycle  # noqa: E402
-from deflatedmlmc_schwinger_tpu_torch.solvers import fgmres  # noqa: E402
 from deflatedmlmc_schwinger_tpu_torch.utils.checkpoint import load_hierarchy  # noqa: E402
 
 NT, NX = 32, 64
@@ -125,11 +122,13 @@ def test_unknown_smoother_rejected(hiers):
         MGSolver(hiers[1], SolverConfig(smoother="jacobi")).precond(0)
 
 
-def test_gmres_v_cycle_matches_jax(hiers):
+@pytest.mark.parametrize("smoother", SMOOTHERS)
+def test_gmres_v_cycle_matches_jax(hiers, smoother):
     jh, th = hiers
     b = _randc(7, 3, th.sizes()[0])
-    ref = cplx.to_complex(JaxMGSolver(jh, JaxSolverConfig()).precond(0)(cplx.from_complex(b)))
-    out = MGSolver(th, SolverConfig()).precond(0)(torch.from_numpy(b)).numpy()
+    ref = cplx.to_complex(JaxMGSolver(jh, JaxSolverConfig(smoother=smoother)).precond(0)(
+        cplx.from_complex(b)))
+    out = MGSolver(th, SolverConfig(smoother=smoother)).precond(0)(torch.from_numpy(b)).numpy()
     _close(out, ref, 1e-10)
 
 
@@ -149,38 +148,14 @@ def test_gmres_mg_solve_matches_jax(hiers, level):
 
 @pytest.mark.parametrize("smoother", SMOOTHERS)
 @pytest.mark.parametrize("level", [0, 1])
-def test_v_cycle_with_residual_is_true_residual(hiers, smoother, level):
+def test_smooth_residual_is_true_residual(hiers, smoother, level):
+    """``smooth_residual`` on the fine stencil level (K3's or K2's plain
+    version on the CPU) and on a block stencil level: the x of ``smooth``
+    and b - A x."""
     _, th = hiers
     s = MGSolver(th, SolverConfig(restart=40, smoother=smoother))
-    v = torch.from_numpy(_randc(40 + level, 3, th.sizes()[level]))
-    z, Az = s.precond_matvec(level)(v)
-    _close(z.numpy(), s.precond(level)(v).numpy(), 1e-12)
-    _close(Az.numpy(), s.matvec(level)(z).numpy(), 1e-10)
-    zz, r = cycle.build_v_cycle(list(th.levels)[level:], th.coarsest_inv,
-                                s._smoothers(level), with_residual=True)(v)
-    _close(r.numpy(), (v - s.matvec(level)(zz)).numpy(), 1e-10)
-
-
-@pytest.mark.parametrize("smoother", SMOOTHERS)
-def test_precond_matvec_matches_jax(hiers, smoother):
-    jh, th = hiers
-    v = _randc(50, 2, th.sizes()[0])
-    jz, jAz = JaxMGSolver(jh, JaxSolverConfig(smoother=smoother)).precond_matvec(0)(
-        cplx.from_complex(v))
-    z, Az = MGSolver(th, SolverConfig(smoother=smoother)).precond_matvec(0)(torch.from_numpy(v))
-    _close(z.numpy(), cplx.to_complex(jz), 1e-10)
-    _close(Az.numpy(), cplx.to_complex(jAz), 1e-10)
-
-
-@pytest.mark.parametrize("smoother", SMOOTHERS)
-def test_fgmres_matvec_precond_equals_pair(hiers, smoother):
-    _, th = hiers
-    s = MGSolver(th, SolverConfig(restart=40, smoother=smoother))
-    b = torch.from_numpy(_randc(60, 4, th.sizes()[0]))
-    kw = dict(tol=1e-10, restart=40, max_restarts=10)
-    pair = fgmres(s.matvec(0), b, precond=s.precond(0), **kw)
-    fused = fgmres(s.matvec(0), b, matvec_precond=s.precond_matvec(0), **kw)
-    np.testing.assert_array_equal(fused.iters.numpy(), pair.iters.numpy())
-    assert fused.cycles == pair.cycles
-    _close(fused.x.numpy(), pair.x.numpy(), 1e-9)
-    assert float((fused.resnorm / fused.bnorm).max()) < 1e-10
+    sm, op = s._smoothers(0)[level], th.levels[level].op
+    b = torch.from_numpy(_randc(40 + level, 3, th.sizes()[level]))
+    x, r = sm.smooth_residual(op, b)
+    _close(x.numpy(), sm.smooth(op, b).numpy(), 1e-12)
+    _close(r.numpy(), (b - op.matvec(x)).numpy(), 1e-10)
