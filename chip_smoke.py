@@ -39,6 +39,14 @@
    it replaced (gather, batched product and elementwise passes), with the
    bound of one smoother root (cur and x in and out and the nonzero values
    at HBM_BYTES_PER_S, or the nonzero flops at FP32_FLOPS_PER_S).
+   Then the Arnoldi step tail (ops/krylov_kernels.py step_tail, the cluster
+   kernel of csrc/krylov.cu) against its plain version at step 10: 128
+   probes of 32768 (complex64, 1e-5), 8 of 512 (complex128, 1e-12) and 16
+   of 524288 (the device-memory form, 1e-5), iterations equal; and its
+   device ms by CUDA-graph replay for j = 0..10 beside the plain tail's and
+   the byte bound ((j + 3) blocks of B x n at HBM_BYTES_PER_S) at the
+   cells' shape (B = 128, n = 32768), G301's and G302's. Every path below
+   on one card (phases 3, 4, 7, 8, 9 and 12) must launch the tail kernel.
 3. Runs gateway.G301 (deflated Hutchinson, generated 256^2 lattice) on
    cuda:0 to its stopping rule, checks that every kernel was launched on
    that path, that no more probe rows stalled than the configuration
@@ -140,6 +148,9 @@ FLAGSHIP_MATRIX = "generated:128x128:beta=5.0:seed=11"
 FLAGSHIP_MASS = -0.17
 ORACLE_SIGMAS = 5.0
 KERNEL_SOURCE = "deflatedmlmc_schwinger_tpu_torch/csrc/stencil.cu"
+KRYLOV_SOURCE = "deflatedmlmc_schwinger_tpu_torch/csrc/krylov.cu"
+# the Arnoldi steps of a batch at the cells' shape (est.batch_iters_p90: 11)
+KRYLOV_STEPS = tuple(range(11))
 # The card's data-sheet peaks the bounds are reckoned against (NVIDIA H100
 # SXM): device memory, and float32 outside the tensor cores (the stencil's
 # coefficients differ per site, so it is no matrix product).
@@ -666,6 +677,114 @@ def check_block_kernels(device) -> dict:
     return out
 
 
+def _tail_workspace(B: int, n: int, m: int, dtype, device, seed: int):
+    """A FGMRES workspace (solvers/fgmres.py KrylovWorkspace) of random
+    contents as a solve leaves it before a step tail: basis vectors of
+    about unit norm, rotations on the unit circle, every row active."""
+    import math
+
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import KrylovWorkspace
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    ws = KrylovWorkspace(B, n, m, dtype, rdt, device, graphable=False)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for i in range(m + 1):
+        ws.V[i] = _randn((B, n), dtype, gen, device) / math.sqrt(n)
+    ws.w.copy_(_randn((B, n), dtype, gen, device))
+    ws.H.zero_()
+    ws.g.copy_(_randn((B, m + 1), dtype, gen, device))
+    theta = 1.5 * torch.rand((m, B), generator=gen, dtype=rdt, device=device)
+    ws.cs.copy_(torch.cos(theta))
+    ws.sn.copy_(torch.sin(theta).to(dtype))
+    ws.res.fill_(1.0)
+    ws.tol_abs.fill_(0.5)
+    ws.iters.zero_()
+    return ws
+
+
+def _tail_bound_ms(B: int, n: int, j: int, itemsize: int) -> float:
+    """Step j's tail reads V[0..j] and w and writes V[j+1]: (j + 3) blocks."""
+    return 1e3 * (j + 3) * B * n * itemsize / HBM_BYTES_PER_S
+
+
+def check_krylov_tail(device) -> dict:
+    """Phase 2, the Arnoldi step tail (ops/krylov_kernels.py step_tail,
+    csrc/krylov.cu): the kernel against the plain tail at step 10 on the
+    cells' shape (B = 128, n = 32768, complex64, TOL_C64), the G101/G201
+    shape (8 probes of 512, complex128, TOL_C128) and G302's (16 probes of
+    524288, the device-memory form, TOL_C64); then, graph-replayed, the
+    kernel's and the plain tail's device ms for j = 0..10 beside the byte
+    bound at the cells', G301's and G302's shapes. Returns {shape: {...}}."""
+    import types
+
+    import torch
+
+    from deflatedmlmc_schwinger_tpu_torch.ops import krylov_kernels as kk
+
+    c64, c128 = torch.complex64, torch.complex128
+    fields = ("V", "H", "g", "cs", "sn", "res", "tol_abs", "iters", "w")
+    out = {}
+    for label, B, n, dtype, tol in (("cells", 128, 32768, c64, TOL_C64),
+                                    ("G101", 8, 512, c128, TOL_C128),
+                                    ("G302", 16, 524288, c64, TOL_C64)):
+        ws = _tail_workspace(B, n, 40, dtype, device, 31)
+        ref = types.SimpleNamespace(**{f: getattr(ws, f).clone() for f in fields})
+        tiny = torch.finfo(ws.res.dtype).tiny
+        kk.step_tail(ws, 10, tiny)
+        kk.step_tail_plain(ref, 10, tiny)
+        torch.cuda.synchronize()
+        errs = {f: _rel_err(getattr(ws, f), getattr(ref, f))
+                for f in ("V", "H", "g", "cs", "sn", "res")}
+        plan = kk.launch_plan(n, 40, ws.V.element_size())
+        print(f"[krylov tail {label}] B={B} n={n} {dtype} plan {tuple(plan)}: rel err "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        if not torch.equal(ws.iters, ref.iters) or max(errs.values()) > tol:
+            raise RuntimeError(f"krylov tail {label}: {errs} (tol {tol:g}), iterations "
+                               f"equal {torch.equal(ws.iters, ref.iters)}")
+        out[label] = dict(plan=tuple(plan), rel_err=errs)
+        del ws, ref
+    for label, B, n in (("cells", 128, 32768), ("G301", 64, 131072), ("G302", 16, 524288)):
+        ws = _tail_workspace(B, n, 40, c64, device, 32)
+        tiny = torch.finfo(torch.float32).tiny
+        rows = []
+        for j in KRYLOV_STEPS:
+            ms = _graph_ms(lambda j=j: kk.step_tail(ws, j, tiny))
+            plain_ms = _graph_ms(lambda j=j: kk.step_tail_plain(ws, j, tiny), reps=10)
+            rows.append((j, ms, plain_ms, _tail_bound_ms(B, n, j, 8)))
+        ms, plain_ms, bound = (sum(r[k] for r in rows) for k in (1, 2, 3))
+        plan = kk.launch_plan(n, 40, 8)
+        print(f"[krylov tail {label}] B={B} n={n} plan {tuple(plan)}, device ms by j "
+              "(kernel / plain / bound): " + "; ".join(
+                  f"{j}: {a:.4f} / {b:.4f} / {c:.4f}" for j, a, b, c in rows))
+        print(f"[krylov tail {label}] j = 0..10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms (bytes), {bound / ms:.1%} of bound, "
+              f"{plain_ms / ms:.2f}x faster than plain (CUDA-graph replay)")
+        out.setdefault(label, {}).update(
+            B=B, n=n, plan=tuple(plan), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            share=bound / ms, by_j=rows)
+        del ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fresh_krylov(kk) -> None:
+    """Zero the step tail's launch counter and drop the FGMRES workspaces
+    held from earlier paths: a path of a shape an earlier one ran would
+    otherwise only replay that path's graphs, which bypass the wrapper."""
+    import importlib
+
+    importlib.import_module("deflatedmlmc_schwinger_tpu_torch.solvers.fgmres")._workspaces.clear()
+    kk.step_tail.launches = 0
+
+
+def _require_krylov(label: str, launches: int) -> None:
+    """Every single-device FGMRES step tail on the card is the kernel's."""
+    if launches <= 0:
+        raise RuntimeError(f"{label} did not launch the Arnoldi step tail kernel")
+
+
 def flagship_cfg():
     """The JAX package's schwinger128 profile, field for field, on the
     generated flagship operator."""
@@ -713,17 +832,20 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
     import torch
 
     from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
+    from deflatedmlmc_schwinger_tpu_torch.ops import krylov_kernels as kk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
     bk.reset_launch_counts()
+    _fresh_krylov(kk)
     t0 = time.perf_counter()
     result = entry(device=device)
     wall = time.perf_counter() - t0
     counts = sk.launch_counts()
     k4_counts = bk.launch_counts()
+    tails = kk.step_tail.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phases = dict(result["timer"].totals)
     tr = complex(result["trace"])
@@ -737,13 +859,14 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
         f"{k}={phases.get(k, 0.0):.4f}" for k in ("mg_setup", "defl_setup",
                                                    "rough_trace", "sampling")))
     print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the tiled "
-          f"kernel, several roots each); K4 {k4_counts}")
+          f"kernel, several roots each); K4 {k4_counts}; step tails {tails}")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError(f"{label} produced a non-finite result")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
     _require_k4(label, cfg, k4_counts)
+    _require_krylov(label, tails)
     _no_yardstick_launch(label, sk.yardstick_counts())
     solved = result["nr_ests"] + max(cfg.nr_rough_iters, cfg.probe_batch)
     if result["stalled_rows"] > cfg.max_stalled_frac * solved:
@@ -751,7 +874,8 @@ def run_generated(label: str, entry, cfg, reference: float, device) -> dict:
     if abs(tr - reference) > cfg.trace_tol * reference:
         raise RuntimeError(f"{label} trace {tr} is not within {cfg.trace_tol:.0%} "
                            f"of {reference}")
-    return dict(counts=counts | {"K4": k4_counts}, result=result, wall=wall, peak_gb=peak_gb)
+    return dict(counts=counts | {"K4": k4_counts, "krylov_tail": tails}, result=result,
+                wall=wall, peak_gb=peak_gb)
 
 
 def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
@@ -764,16 +888,19 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
 
     from deflatedmlmc_schwinger_tpu_torch import examples
     from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
+    from deflatedmlmc_schwinger_tpu_torch.ops import krylov_kernels as kk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
 
     entry = examples.EXAMPLE_002 if mlmc else examples.EXAMPLE_001
     sk.reset_launch_counts()
     bk.reset_launch_counts()
+    _fresh_krylov(kk)
     t0 = time.perf_counter()
     result = entry(cfg, device=device)
     wall = time.perf_counter() - t0
     counts = sk.launch_counts()
     k4_counts = bk.launch_counts()
+    tails = kk.step_tail.launches
     phases = dict(result["timer"].totals)
     tr = complex(result["trace"])
     k = int(cfg.nr_deflat_vctrs)
@@ -805,10 +932,11 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
           f"{max(abs(defl.values)):.4g}], tr1 {defl.tr1:.6f}")
     print(f"[{label}] phase seconds " + " ".join(f"{n}={t:.4f}" for n, t in phases.items()))
     print(f"[{label}] kernel launches {counts} (stencil_poly_smooth: launches of the "
-          f"tiled kernel, several roots each); K4 {k4_counts}")
+          f"tiled kernel, several roots each); K4 {k4_counts}; step tails {tails}")
     if not all(math.isfinite(x) for x in (tr.real, tr.imag, stderr)):
         raise RuntimeError(f"{label} produced a non-finite result")
     _require_k4(label, cfg, k4_counts)
+    _require_krylov(label, tails)
     if len(defl.values) != k or not all(math.isfinite(x) for x in defl.values):
         raise RuntimeError(f"{label}: the deflation basis has no {k} finite eigenvalues")
     missing = [n for n in kernels_of_path if counts[n] <= 0]
@@ -817,7 +945,7 @@ def run_profile(label: str, cfg, mlmc: bool, device, kernels_of_path):
     _no_yardstick_launch(label, sk.yardstick_counts())
     if stalled > cfg.max_stalled_frac * solved:
         raise RuntimeError(f"{label}: {stalled} stalled rows of {solved}")
-    return result, counts | {"K4": k4_counts}, wall, stderr
+    return result, counts | {"K4": k4_counts, "krylov_tail": tails}, wall, stderr
 
 
 def check_oracle(label: str, tr: complex, stderr: float, exact: complex) -> None:
@@ -1269,6 +1397,7 @@ def check_complex64_policies(device, exact16: complex) -> dict:
     from deflatedmlmc_schwinger_tpu_torch.io import load_operator
     from deflatedmlmc_schwinger_tpu_torch.mg import MGSolver, setup_hierarchy
     from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels as bk
+    from deflatedmlmc_schwinger_tpu_torch.ops import krylov_kernels as kk
     from deflatedmlmc_schwinger_tpu_torch.ops import stencil_kernels as sk
     from deflatedmlmc_schwinger_tpu_torch.trace import hutchinson, mlmc
     from deflatedmlmc_schwinger_tpu_torch.trace.deflation import hutchinson_deflation
@@ -1276,6 +1405,7 @@ def check_complex64_policies(device, exact16: complex) -> dict:
     label = "c64 policies"
     sk.reset_launch_counts()
     bk.reset_launch_counts()
+    _fresh_krylov(kk)
     t0 = time.perf_counter()
     ops = {dt: load_operator(SMALL_MATRIX, SMALL_MASS, dtype=dt, device=device)[0]
            for dt in (torch.complex64, torch.complex128)}
@@ -1352,15 +1482,16 @@ def check_complex64_policies(device, exact16: complex) -> dict:
         raise RuntimeError(f"{label}: refinement cut the tr1 error from {errs[0]:.3e} to "
                            f"{errs[2]:.3e}, less than tenfold")
 
-    counts, k4_counts = sk.launch_counts(), bk.launch_counts()
-    print(f"[{label}] kernel launches {counts}; K4 {k4_counts}; phase "
+    counts, k4_counts, tails = sk.launch_counts(), bk.launch_counts(), kk.step_tail.launches
+    print(f"[{label}] kernel launches {counts}; K4 {k4_counts}; step tails {tails}; phase "
           f"{time.perf_counter() - t0:.2f} s")
     missing = [k for k in ("stencil_matvec", "stencil_residual") if counts[k] <= 0]
     if missing:
         raise RuntimeError(f"{label} did not launch {missing}")
     _require_k4(label, bias_cfg, k4_counts)
+    _require_krylov(label, tails)
     _no_yardstick_launch(label, sk.yardstick_counts())
-    return counts | {"K4": k4_counts}
+    return counts | {"K4": k4_counts, "krylov_tail": tails}
 
 
 def main() -> None:
@@ -1387,6 +1518,7 @@ def main() -> None:
 
     kernels = check_kernels(device)
     k4 = check_block_kernels(device)
+    tail = check_krylov_tail(device)
     all_kernels = tuple(sk.launch_counts())
     counts = {}
     g301 = run_generated("G301", gateway.G301, gateway.set_params("schwinger256"),
@@ -1490,6 +1622,12 @@ def main() -> None:
         name="coarse_bsr", route="cuda", source=KERNEL_SOURCE, replaces=None,
         launches_per_path={p: c["K4"] for p, c in counts.items() if "K4" in c},
         shapes="G102 coarse levels", levels=k4))
+    entries.append(dict(
+        name="krylov_tail", route="cuda", source=KRYLOV_SOURCE, replaces=None,
+        launches_per_path={p: c["krylov_tail"] for p, c in counts.items()
+                           if "krylov_tail" in c},
+        shapes="B = 128, n = 32768 (the cells); G301; G302", steps=KRYLOV_STEPS,
+        by_shape={k: {f: v for f, v in d.items() if f != "by_j"} for k, d in tail.items()}))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -87,6 +87,8 @@
 #include <cstdint>
 #include <mutex>
 
+#include "device_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -104,14 +106,6 @@ template <typename V>
 __device__ __forceinline__ void cmac(V& acc, V a, V b) {
   acc.x += a.x * b.x - a.y * b.y;
   acc.y += a.x * b.y + a.y * b.x;
-}
-
-template <typename V>
-__device__ __forceinline__ V czero() {
-  V r;
-  r.x = 0;
-  r.y = 0;
-  return r;
 }
 
 __device__ __forceinline__ constexpr bool tap_used(int a, int b, int k) {
@@ -669,42 +663,6 @@ constexpr int kRowsMaxStages = 8;
 constexpr int kRowsBarBytes = kRowsMaxStages * 8;  // the stages' mbarriers
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One contiguous run of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
@@ -926,23 +884,6 @@ stencil_rows_kernel(const V* __restrict__ C, const V* __restrict__ b,
     }
   }
 }
-
-// Switches to device `dev` for a launch when it is not the current one, and
-// back afterwards.
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t enter(int dev) {
-    int cur = 0;
-    cudaError_t err = cudaGetDevice(&cur);
-    if (err != cudaSuccess || cur == dev) return err;
-    err = cudaSetDevice(dev);
-    if (err == cudaSuccess) prev = cur;
-    return err;
-  }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 

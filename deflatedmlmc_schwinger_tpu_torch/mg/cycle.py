@@ -31,13 +31,9 @@ from deflatedmlmc_schwinger_tpu_torch.config import SolverConfig
 from deflatedmlmc_schwinger_tpu_torch.mg.hierarchy import BlockStencilOperator, Hierarchy
 from deflatedmlmc_schwinger_tpu_torch.ops import block_kernels, stencil_kernels
 from deflatedmlmc_schwinger_tpu_torch.ops.dirac import StencilOperator
+from deflatedmlmc_schwinger_tpu_torch.ops.krylov_kernels import _dot, _norm
 from deflatedmlmc_schwinger_tpu_torch.solvers.eigs import _apply_cols
-from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import (
-    FGMRESResult,
-    _dot,
-    _norm,
-    fgmres,
-)
+from deflatedmlmc_schwinger_tpu_torch.solvers.fgmres import FGMRESResult, fgmres
 from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache, GraphPool
 from deflatedmlmc_schwinger_tpu_torch.utils.timer import span
 

@@ -16,11 +16,17 @@ inner product over the ranks that share the rows, and ``pred_group``
 any-reduces every bool that steers a loop, so that all ranks take the same
 number of steps. Without them no collective is made.
 
+Each step's tail (Gram-Schmidt, rotations, residual estimates) is
+ops/krylov_kernels.py ``step_tail``: on a CUDA device one launch of the
+tail kernel, on the CPU its plain version. A solve over a ``group`` runs the
+plain version's per-term loop on any device, since its inner products are
+collectives between the terms.
+
 Spans (utils/timer.py): ``fgmres.solve`` around a solve, ``fgmres.cycle``
-around a restart cycle, ``fgmres.step`` around an Arnoldi step, and
-``fgmres.mgs`` and ``fgmres.givens`` around a step's Gram-Schmidt and Givens
-loops. The host reads of the loop predicates count under the sites
-``fgmres.cycle``, ``fgmres.step`` and ``fgmres.stall``.
+around a restart cycle, ``fgmres.step`` around an Arnoldi step, and, on the
+plain tail only, ``fgmres.mgs`` and ``fgmres.givens`` around a step's
+Gram-Schmidt and Givens loops. The host reads of the loop predicates count
+under the sites ``fgmres.cycle``, ``fgmres.step`` and ``fgmres.stall``.
 
 A solve runs over a ``KrylovWorkspace``, the buffers of its shape, which
 solves of that shape reuse. Each cycle's head (residual, V[0], zeroed
@@ -42,6 +48,13 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from deflatedmlmc_schwinger_tpu_torch.ops.krylov_kernels import (  # noqa: F401 (_dot, _givens: re-exported)
+    _dot,
+    _givens,
+    _norm,
+    step_tail,
+    step_tail_plain,
+)
 from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache, GraphPool
 from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read, span
 
@@ -53,17 +66,6 @@ class FGMRESResult(NamedTuple):
     iters: torch.Tensor      # (B,) int32 Arnoldi steps per row
     cycles: int              # restart cycles used
     stalled: torch.Tensor    # (B,) bool: final residual above tol
-
-
-def _psum(s: torch.Tensor, group) -> torch.Tensor:
-    """Sum of the ranks' partial sums over ``group`` (None: no ranks to sum
-    over, and no collective)."""
-    if group is None:
-        return s
-    # imported here: parallel/ imports the solvers
-    from deflatedmlmc_schwinger_tpu_torch.parallel.distributed import all_sum
-
-    return all_sum(s, group)
 
 
 def _gany(flag: torch.Tensor, group, site: str) -> bool:
@@ -78,33 +80,6 @@ def _gany(flag: torch.Tensor, group, site: str) -> bool:
     return all_any(flag, group)
 
 
-def _norm(x: torch.Tensor, group=None) -> torch.Tensor:
-    return torch.sqrt(_psum((x.real ** 2 + x.imag ** 2).sum(-1), group))
-
-
-def _dot(x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
-    """<x, y> = sum conj(x) y along the last axis."""
-    return _psum((x.conj() * y).sum(-1), group)
-
-
-def _givens(a: torch.Tensor, b: torch.Tensor, tiny: float):
-    """Complex Givens rotation: c real, s complex with
-    [c, s; -conj(s), c] @ [a, b]^T = [r, 0]^T."""
-    na = a.abs()
-    nb = b.abs()
-    t = torch.sqrt(na * na + nb * nb)
-    t_safe = torch.clamp(t, min=tiny)
-    na_safe = torch.clamp(na, min=tiny)
-    c = na / t_safe
-    s = (a / na_safe) * b.conj() / t_safe
-    s_a0 = b.conj() / torch.clamp(nb, min=tiny)
-    s = torch.where(na > 0, s, s_a0)
-    c = torch.where(na > 0, c, torch.zeros_like(c))
-    c = torch.where(t > 0, c, torch.ones_like(c))
-    s = torch.where(t > 0, s, torch.zeros_like(s))
-    return c, s, c * a + s * b
-
-
 class KrylovWorkspace:
     """The buffers of one solve shape (device, dtype, B, n, m): the Krylov
     bases V (m + 1, B, n) and Z (m, B, n), the Hessenberg columns H, the
@@ -115,14 +90,14 @@ class KrylovWorkspace:
     shape in the process shares one (``_workspace``).
 
     On a CUDA device (``graphable``) FGMRES's own work, each step tail and
-    each cycle end (``_step_tail``, ``_cycle_end``: they read and write only
+    each cycle end (``step_tail``, ``_cycle_end``: they read and write only
     these buffers), replays as one captured ``torch.cuda.CUDAGraph`` per
     key ("step", j) or ("end", j) (``graphs``, a utils/graphs.py
     ``GraphCache`` with this workspace's own side stream and memory pool:
     first call eager, second captured, later ones replayed). Counted under
     ``fgmres.graph`` in utils/timer.py ``graph_calls``. A replay is one
-    ``fgmres.step.graph`` or ``fgmres.end.graph`` span; ``fgmres.mgs`` and
-    ``fgmres.givens`` appear on eager and capturing calls only."""
+    ``fgmres.step.graph`` or ``fgmres.end.graph`` span; the plain tail's
+    ``fgmres.mgs`` and ``fgmres.givens`` appear on eager calls only."""
 
     def __init__(self, B: int, n: int, m: int, cdtype: torch.dtype, rdtype: torch.dtype,
                  device, graphable: bool):
@@ -173,44 +148,6 @@ def _workspace(b: torch.Tensor, m: int, rdtype: torch.dtype, group):
         ws.busy = False
 
 
-def _step_tail(ws: KrylovWorkspace, j: int, tiny: float, group) -> None:
-    """Arnoldi step j after its preconditioner and operator (Z[j] and w
-    set): the active rows' step counts, modified Gram-Schmidt of w against
-    V[0..j] into V[j+1], the earlier rotations and a new one on the column,
-    the rotated right-hand side and the active rows' residual estimates."""
-    B, m = ws.H.shape[0], ws.H.shape[2]
-    V, H, g, cs, sn, res = ws.V, ws.H, ws.g, ws.cs, ws.sn, ws.res
-    active = res > ws.tol_abs
-    ws.iters += active.to(torch.int32)
-    w = ws.w
-    hcol = torch.zeros((B, m + 1), dtype=V.dtype, device=V.device)
-    with span("fgmres.mgs"):
-        for i in range(j + 1):           # modified Gram-Schmidt
-            hi = _dot(V[i], w, group)
-            w = w - hi[:, None] * V[i]
-            hcol[:, i] = hi
-        hnorm = _norm(w, group)
-        hcol[:, j + 1] = hnorm
-        V[j + 1] = w / torch.clamp(hnorm, min=tiny)[:, None]
-    with span("fgmres.givens"):
-        for i in range(j):
-            hi, hip1 = hcol[:, i], hcol[:, i + 1]
-            new_i = cs[i] * hi + sn[i] * hip1
-            new_ip1 = cs[i] * hip1 - sn[i].conj() * hi
-            hcol[:, i] = new_i
-            hcol[:, i + 1] = new_ip1
-        c_new, s_new, r_new = _givens(hcol[:, j], hcol[:, j + 1], tiny)
-        hcol[:, j] = r_new
-        hcol[:, j + 1] = 0
-        cs[j] = c_new
-        sn[j] = s_new
-        gj = g[:, j].clone()
-        g[:, j] = c_new * gj
-        g[:, j + 1] = -s_new.conj() * gj
-        H[:, :, j] = hcol
-        res.copy_(torch.where(active, g[:, j + 1].abs(), res))
-
-
 def _cycle_end(ws: KrylovWorkspace, j: int, tiny: float) -> None:
     """The end of a cycle that took j steps: back substitution on the
     rotated upper-triangular system, then x += Z[:j] y."""
@@ -237,6 +174,9 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                  stall_cycles: int, group=None, pred_group=None):
     m = restart
     tiny = torch.finfo(tol_abs.dtype).tiny
+    # the kernel on a card; a group's inner products are collectives between
+    # the terms, which no kernel can hold
+    tail = step_tail if group is None else partial(step_tail_plain, group=group)
     with _workspace(b, m, tol_abs.dtype, group) as ws:
         V, Z = ws.V, ws.Z
         ws.tol_abs.copy_(tol_abs)
@@ -266,7 +206,7 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                         Z[j] = z
                         ws.w.copy_(w)
                         ws.run(("step", j), "fgmres.step.graph",
-                               partial(_step_tail, ws, j, tiny, group))
+                               partial(tail, ws, j, tiny))
                     j += 1
                 ws.run(("end", j), "fgmres.end.graph", partial(_cycle_end, ws, j, tiny))
                 true_res = _norm(b - matvec(ws.x), group)
