@@ -26,7 +26,9 @@ Spans (utils/timer.py): ``fgmres.solve`` around a solve, ``fgmres.cycle``
 around a restart cycle, ``fgmres.step`` around an Arnoldi step, and, on the
 plain tail only, ``fgmres.mgs`` and ``fgmres.givens`` around a step's
 Gram-Schmidt and Givens loops. The host reads of the loop predicates count
-under the sites ``fgmres.cycle``, ``fgmres.step`` and ``fgmres.stall``.
+under the sites ``fgmres.cycle``, ``fgmres.step`` and ``fgmres.stall``, and
+each solve, cycle and step tail under the solve's shape in
+``krylov_counts``.
 
 A solve runs over a ``KrylovWorkspace``, the buffers of its shape, which
 solves of that shape reuse. Each cycle's head (residual, V[0], zeroed
@@ -56,7 +58,7 @@ from deflatedmlmc_schwinger_tpu_torch.ops.krylov_kernels import (  # noqa: F401 
     step_tail_plain,
 )
 from deflatedmlmc_schwinger_tpu_torch.utils.graphs import GraphCache, GraphPool
-from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read, span
+from deflatedmlmc_schwinger_tpu_torch.utils.timer import host_read, krylov_counts, span
 
 
 class FGMRESResult(NamedTuple):
@@ -177,6 +179,8 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
     # the kernel on a card; a group's inner products are collectives between
     # the terms, which no kernel can hold
     tail = step_tail if group is None else partial(step_tail_plain, group=group)
+    counts = krylov_counts[(*b.shape, b.element_size())]
+    counts["solves"] += 1
     with _workspace(b, m, tol_abs.dtype, group) as ws:
         V, Z = ws.V, ws.Z
         ws.tol_abs.copy_(tol_abs)
@@ -187,6 +191,7 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
         stalls = 0
         while (cycles < max_restarts and stalls < stall_cycles
                and _gany((resnorm > tol_abs).any(), pred_group, "fgmres.cycle")):
+            counts["cycles"] += 1
             with span("fgmres.cycle"):
                 r = b - matvec(ws.x)
                 beta = _norm(r, group)
@@ -207,6 +212,8 @@ def _fgmres_impl(matvec: Callable, precond: Callable, b: torch.Tensor,
                         ws.w.copy_(w)
                         ws.run(("step", j), "fgmres.step.graph",
                                partial(tail, ws, j, tiny))
+                    counts["tails"] += 1
+                    counts["j_sum"] += j
                     j += 1
                 ws.run(("end", j), "fgmres.end.graph", partial(_cycle_end, ws, j, tiny))
                 true_res = _norm(b - matvec(ws.x), group)

@@ -30,6 +30,12 @@ per owner: ``vcycle.graph``, the coarse V-cycle's (mg/cycle.py
 ``CycleGraphs``), and ``fgmres.graph``, FGMRES's step tails and cycle ends
 (solvers/fgmres.py ``KrylovWorkspace``). Each call is one of ``captures``,
 ``replays`` and ``eager``; the hit share is replays / (replays + eager).
+
+``krylov_counts``: FGMRES's work per solve shape (B, n, itemsize) of the
+right-hand sides, always on: ``solves``, restart ``cycles``, Arnoldi step
+``tails`` (one launch of the tail kernel each on a card; eager, captured
+and replayed steps alike) and ``j_sum``, the sum of those steps' indices j
+(step j's tail reads j + 3 blocks of B n itemsize bytes).
 """
 
 from __future__ import annotations
@@ -52,6 +58,12 @@ host_reads: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
 _GRAPH_LABELS = {"vcycle.graph": "V-cycle", "fgmres.graph": "FGMRES"}
 graph_calls: Dict[str, Dict[str, int]] = {
     name: dict(captures=0, replays=0, eager=0) for name in _GRAPH_LABELS}
+
+
+# (B, n, itemsize) -> {solves, cycles, tails, j_sum} since the last
+# reset_krylov_counts(); solvers/fgmres.py adds to them
+krylov_counts: Dict[tuple, Dict[str, int]] = defaultdict(
+    lambda: dict(solves=0, cycles=0, tails=0, j_sum=0))
 
 
 def set_spans(on: bool) -> None:
@@ -107,6 +119,10 @@ def host_read_totals() -> Dict[str, float]:
 def reset_graph_calls() -> None:
     for calls in graph_calls.values():
         calls.update(dict.fromkeys(calls, 0))
+
+
+def reset_krylov_counts() -> None:
+    krylov_counts.clear()
 
 
 class PhaseTimer:
