@@ -11,7 +11,9 @@
    version on the card: at the G301 shapes (64 probes, 256^2, complex64) to
    1e-5 relative, and on a small non-square complex128 lattice to 1e-12;
    then at the G102 shapes (128 probes, 128^2, complex64, K3 with the
-   depth-16 sampling and depth-4 setup roots) to 1e-5. Times each kernel
+   depth-16 sampling and depth-4 setup roots) to 1e-5, and at the
+   parity128.b128 shapes (128 probes, 128^2, complex128, K3 at depth 4) to
+   1e-12; prints K3's launches by plan (stencil_poly_smooth.plans). Times each kernel
    and its plain version with CUDA events, beside its yardstick in turns
    (kernel, yardstick, yardstick, kernel): the per-site K1 and K2
    (stencil_matvec_per_site, stencil_residual_per_site; the row kernel must
@@ -527,9 +529,11 @@ def _roots(op, depth: int):
 
 def check_kernels(device) -> dict:
     """Phases 2 and 6: every kernel against its plain version at the G301
-    shapes (and on a small c128 lattice), the G102 shapes, the G101/G201
-    shapes (complex128, K1 and K2) and the G302 shapes: 16 probes as on one
-    rank, and 8 as each of two sample ranks gives the replicated solver."""
+    shapes (and on a small c128 lattice), the G102 shapes, the
+    parity128.b128 shapes (128 probes, 128^2, complex128, K3 at depth 4),
+    the G101/G201 shapes (complex128, K1 and K2) and the G302 shapes: 16
+    probes as on one rank, and 8 as each of two sample ranks gives the
+    replicated solver. Prints K3's launches by plan."""
     import torch
 
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
@@ -543,8 +547,9 @@ def check_kernels(device) -> dict:
     small = (sop.coeffs, _randn((3, sop.n), torch.complex128, gen, device),
              _randn((3, sop.n), torch.complex128, gen, device), sop.nx, sop.nt)
     g302 = set_params("schwinger512")
+    sk.reset_launch_counts()
     for label, cfg in (("G301", set_params("schwinger256")), ("G102", flagship_cfg()),
-                       ("G101", small_cfg()), ("G302", g302),
+                       ("parity128", parity_cfg()), ("G101", small_cfg()), ("G302", g302),
                        ("G302 B8", g302.replace(probe_batch=g302.probe_batch // 2))):
         op, _ = load_operator(cfg.matrix, cfg.mass, latt_dims=cfg.latt_dims,
                               dtype=cfg.dtype, device=device)
@@ -562,6 +567,7 @@ def check_kernels(device) -> dict:
                                 TOL_C64 if cfg.dtype == torch.complex64 else TOL_C128)
         _add_library_ms(label, results[label], op.coeffs, v, w, op.nx, op.nt)
         del op, v, w
+    print(f"[kernels] K3 launches by plan: {sk.stencil_poly_smooth.plans}")
     check_window_stress(device)
     check_row_paths(device)
     return results
@@ -791,6 +797,15 @@ def flagship_cfg():
     from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
 
     return set_params("schwinger128").replace(matrix=FLAGSHIP_MATRIX, mass=FLAGSHIP_MASS)
+
+
+def parity_cfg():
+    """The schwinger128-parity profile (complex128, depth-4 smoother) on the
+    generated flagship operator, as the parity128.b128 cell runs it."""
+    from deflatedmlmc_schwinger_tpu_torch.gateway import set_params
+
+    return set_params("schwinger128-parity").replace(matrix=FLAGSHIP_MATRIX,
+                                                     mass=FLAGSHIP_MASS)
 
 
 def small_cfg():

@@ -57,27 +57,37 @@
 // arithmetic (164 flop per site, probe and root), not the bytes. One launch
 // per root (poly_step) moves 4 probe blocks per root through device memory
 // and is bound by that traffic instead. poly_tiled keeps the recurrence on
-// chip for several roots: a block owns a window of WX x WT sites of the
-// lattice's periodic extension, one thread per window site, and a launch
-// that applies D h times writes the window's inner tile (WX - 2h) x
-// (WT - 2h); the halo of depth h is recomputed by the neighbouring blocks.
-// A thread keeps its own site's cur and its x sum in registers; cur of the
-// window ping-pongs between two shared-memory buffers so that a neighbour
-// never reads a half-updated value, with one barrier per root. The 18
-// coefficients of a site are private to its thread but too many for the
-// register file at 1024 threads, so they sit in shared memory (144 B per
-// site in complex64, the larger part of the block's budget, which is what
-// holds the window to 1024 sites), are loaded once per block and reused
-// over the block's probes, PB probes per pass through them. The loads of
-// the next probes' window and of x are started a root ahead of their use.
-// Measured on an H100 (PERF.md), the kernel is bound by the number of
-// operations its warps execute: the complex arithmetic is 88 fused
-// multiply-adds per site, probe and root, the same count the arithmetic
-// bound assumes, and around them go the shared-memory loads, the halo's
-// repeated sites (more than a third of the window at depth 4) and the
-// per-probe prologue; barriers and device-memory latency add about a third.
-// So the multiply-adds are written out as fma (cfma/cfms), the roots come
-// from shared memory, and global addresses are stepped, not recomputed.
+// chip for up to kMaxFuse roots: a block owns a window of WX x WT sites of
+// the lattice's periodic extension around a tile of (WX - 2 halo) x
+// (WT - 2 halo) sites; a launch that applies D h <= halo times writes the
+// tile, and the halo is recomputed by the neighbouring blocks. A thread owns
+// a strip of S adjacent t-sites of one window row and keeps, for the whole
+// launch, their 18 S coefficients (loaded once), their cur and their x sums
+// (PB probes a pass) in registers. The earlier design held the coefficients
+// in shared memory and read them again every root: 144 bytes a site against
+// 64 of neighbours in complex64, so shared-memory bandwidth bound it. Now
+// only cur goes through shared memory: the window as copied (this pass's and
+// the next one's), then cur after each root, ping-ponged between two buffers
+// so that a neighbour never reads a half-updated value (one barrier a root),
+// laid out by element of the strip so that a warp's accesses are
+// conflict-free. Per site, probe, spin and root a thread reads the x +- 1
+// neighbours and, at its strip's ends, the t - 1 of the first site and the
+// t + 1 of the last (inside a strip they are its own registers), and stores
+// its new cur: 3 + 2/S elements against 44 fused multiply-adds. The register
+// file bounds the window: 36 (complex64) or 72 (complex128) coefficient
+// registers a site, nothing spilled. On an H100 one site and one probe a
+// thread beat S = 2 and PB = 2 in both dtypes (bench_torch/k3_sweep.py): the
+// registers of a second site or probe cost half the warps, and the warps
+// hide the shared-memory reads. What bounds the kernel now: the root loop's
+// multiply-adds alone run the float32 pipes at about half their rate; then,
+// between the launches of a call, cur and x through device memory (about an
+// eighth of a depth-16 call), the barriers and the shared-memory reads; and
+// the halo (1.49 sites computed for a useful one at depth 4 in the complex64
+// plan, the rows a tile does not need skipped, the columns not). The next
+// pass's window and this pass's x are copied into shared memory by cp.async
+// while the roots run, each thread copying (and later reading) only its own
+// sites. The products are fused multiply-adds (cfma/cfms) in the per-site
+// kernel's order: the on-site term, then tap outer and input spin inner.
 //
 // The kernels allocate nothing and launch on the caller's stream.
 
@@ -331,35 +341,13 @@ struct InvRoots {
   V v[kMaxFuse];  // 1 / theta_j, passed to the kernel by value
 };
 
-// The coefficients of output spins 0 and 1 for one (input spin, tap).
-template <typename V>
-struct alignas(16) CoeffPair {
-  V a0, a1;
-};
-
+// Shared memory of the tiled kernel: the window of two passes as copied (this
+// pass's and the next one's), cur of the window after a root twice
+// (ping-pong), this pass's x as it arrives, and the roots.
 template <typename V, int WX, int WT, int PB>
 constexpr size_t tiled_smem_bytes() {
-  return static_cast<size_t>(WX) * WT *
-             (9 * sizeof(CoeffPair<V>) + 2 * PB * 2 * sizeof(V)) +
+  return static_cast<size_t>(5) * PB * 2 * WX * WT * sizeof(V) +
          kMaxFuse * sizeof(V);
-}
-
-// A global load that stays where it is written: the loads of the next
-// probes' window and of x are started a root or more ahead of their use, and
-// the compiler, short of registers, would otherwise sink them to the use and
-// leave the block waiting on device memory once per pass.
-__device__ __forceinline__ float2 load_ahead(const float2* p) {
-  float2 v;
-  asm volatile("ld.global.v2.f32 {%0, %1}, [%2];"
-               : "=f"(v.x), "=f"(v.y) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ double2 load_ahead(const double2* p) {
-  double2 v;
-  asm volatile("ld.global.v2.f64 {%0, %1}, [%2];"
-               : "=d"(v.x), "=d"(v.y) : "l"(p) : "memory");
-  return v;
 }
 
 // acc += a * b and acc -= a * b as four fused multiply-adds each. Written
@@ -387,185 +375,254 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return m < 0 ? m + n : m;
 }
 
-// One block: the window of WX x WT lattice sites (periodic extension) whose
-// inner tile starts at (x0, t0), for probes [blockIdx.y * probes_per_block,
-// ...), PB probes at a time. Thread i owns window site (i / WT, i % WT).
+// One element (N bytes) copied into shared memory asynchronously; with
+// `valid` false the element is zeroed and nothing is read.
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+               :: "r"(smem_addr(dst)), "l"(src), "n"(N), "r"(valid ? N : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// One block: the window of WX x WT lattice sites (periodic extension)
+// around the tile of (WX - 2 halo) x (WT - 2 halo) sites at (x0, t0), for
+// probes [blockIdx.y * probes_per_block, ...), PB probes a pass. The window
+// starts napply sites before the tile. Thread i owns the strip of S sites
+// (wi, wj0 .. wj0 + S - 1) of the window, wi = i / (WT / S) and
+// wj0 = S (i % (WT / S)), and keeps their 18 S coefficients in registers for
+// the whole launch.
 //
 // Root j: step = cur * inv_j, x += step, and for j < napply
-// cur <- cur - D step, which is valid on the window shrunk by j + 1 on each
-// side. Rows outside that region skip the stencil (a row is a warp); columns
-// outside it compute values that no valid site ever reads. After napply
-// applications the inner tile, napply sites from each edge, is exact.
-// x is read (unless `first`) and written on the tile only, in place; cur_out
-// is written on the tile when the last root applies D (`apply_last`), and
-// must not alias cur_in, whose halo other blocks still read.
-template <typename V, int WX, int WT, int PB>
-__global__ void __launch_bounds__(WX * WT, 1)
+// cur <- cur - D step, valid on rows j + 1 .. H - j, where H is the last row
+// that the owned rows need (fewer in a ragged tile); other rows skip the
+// stencil. t +- 1 inside a strip come from the thread's registers; the
+// strip's two ends and its x +- 1 rows from the window in shared memory,
+// which is laid out by element of the strip ([spin][k][row][strip]) so that
+// a warp's loads and stores fall on distinct banks. A strip at the window's
+// edge wraps within its row and computes values that no valid site reads.
+// After napply applications the owned sites are exact. x is read (unless
+// `first`) and written on them, in place; cur_out is written on them when
+// the last root applies D (`apply_last`), and must not alias cur_in, whose
+// halo other blocks still read.
+template <typename V, int WX, int WT, int S, int PB>
+__global__ void __launch_bounds__(WX * WT / S, 1)
 poly_tiled_kernel(const V* __restrict__ C, const V* __restrict__ cur_in,
                   V* __restrict__ x, V* __restrict__ cur_out,
-                  const InvRoots<V> inv, int nroots, int first, int apply_last,
-                  int probes_per_block, int B, int X, int T) {
-  constexpr int NS = WX * WT;
+                  const InvRoots<V> inv, int nroots, int halo, int first,
+                  int apply_last, int probes_per_block, int B, int X, int T) {
+  static_assert(WT % S == 0, "a window row is whole strips");
+  constexpr int NSTR = WT / S;       // strips of a window row
+  constexpr int NT = WX * NSTR;      // threads, and elements of one plane
+  constexpr int PROBE = 2 * S * NT;  // a probe's window: [spin][k][row][strip]
+  constexpr int BUF = PB * PROBE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  CoeffPair<V>* sC = reinterpret_cast<CoeffPair<V>*>(smem_raw);  // [9][NS]
-  V* sCur = reinterpret_cast<V*>(sC + 9 * NS);  // [2 buffers][PB][2 spins][NS]
-  V* sInv = sCur + 2 * PB * 2 * NS;             // [kMaxFuse]
+  V* sWin = reinterpret_cast<V*>(smem_raw);  // [2 passes][PB] windows as copied
+  V* sCur = sWin + 2 * BUF;                  // [2 buffers][PB] cur after a root
+  V* sX = sCur + 2 * BUF;                    // [PB] this pass's x
+  V* sInv = sX + BUF;                        // [kMaxFuse]
 
   const int napply = apply_last ? nroots : nroots - 1;
-  const int tile_x = WX - 2 * napply;
-  const int tile_t = WT - 2 * napply;
+  const int tile_x = WX - 2 * halo;
+  const int tile_t = WT - 2 * halo;
   const int tiles_t = (T + tile_t - 1) / tile_t;
   const int x0 = (blockIdx.x / tiles_t) * tile_x;
   const int t0 = (blockIdx.x % tiles_t) * tile_t;
+  const int own_x = min(tile_x, X - x0);
+  const int own_t = min(tile_t, T - t0);
   const int i = threadIdx.x;
-  const int wi = i / WT;
-  const int wj = i - wi * WT;
-  const int ox = wi - napply;  // position within the tile
-  const int ot = wj - napply;
+  const int wi = i / NSTR;
+  const int sj = i - wi * NSTR;
+  const int wj0 = sj * S;
+  // The row applies D at roots j < row_roots: j < wi and wi <= H - j.
+  const int row_roots = min(wi, min(WX - 1, own_x + 2 * napply - 1) - wi);
+  // The neighbours t - 1 of the strip's first site and t + 1 of its last.
+  const int i_tm = wi * NSTR + (sj == 0 ? NSTR - 1 : sj - 1);
+  const int i_tp = wi * NSTR + (sj == NSTR - 1 ? 0 : sj + 1);
   const long long XT = static_cast<long long>(X) * T;
-  const long long site =
-      static_cast<long long>(wrap(x0 + ox, X)) * T + wrap(t0 + ot, T);
-  const bool owner = ox >= 0 && ox < tile_x && ot >= 0 && ot < tile_t &&
-                     x0 + ox < X && t0 + ot < T;
+  const int grow = wrap(x0 + wi - napply, X) * T;
+  const bool own_row = wi >= napply && wi - napply < own_x;
+  int gsite[S];   // the strip's sites in the lattice
+  bool owned[S];  // ... and which of them the tile owns
+#pragma unroll
+  for (int kk = 0; kk < S; ++kk) {
+    const int ot = wj0 + kk - napply;
+    gsite[kk] = grow + wrap(t0 + ot, T);
+    owned[kk] = own_row && ot >= 0 && ot < own_t;
+  }
 
-  {
-    CoeffPair<V> cp;
-    cp.a0 = C[site];                // (a, b, k) = (0, 0, 0)
-    cp.a1 = C[15 * XT + site];      // (1, 1, 0)
-    sC[i] = cp;
+  const int pbeg = blockIdx.y * probes_per_block;
+  const int pend = min(B, pbeg + probes_per_block);
+  const long long pstride = 2 * XT;  // elements per probe
+  // Probes p .. p + PB - 1 of `src` at the strip's sites (those the tile
+  // owns with `owned_only`) into `dst`, [PB][spin][k][thread], the same
+  // index as in a window buffer; zeros past the block's probes. Each thread
+  // reads back only what it copied itself.
+  auto stage = [&](V* dst, const V* src, int p, bool owned_only) {
+#pragma unroll
+    for (int q = 0; q < PB; ++q) {
+      const bool live = p + q < pend;
+      const V* base = src + (live ? p + q : pbeg) * pstride;
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk)
+          cp_async_elem<sizeof(V)>(dst + ((q * 2 + s) * S + kk) * NT + i,
+                                   base + s * XT + gsite[kk],
+                                   live && (owned[kk] || !owned_only));
+    }
+  };
+
+  // The first window is on its way while the coefficients load.
+  stage(sWin, cur_in, pbeg, false);
+  cp_async_commit();
+  V c0[S][2];        // on-site (a, a, 0)
+  V ch[S][4][2][2];  // [site][tap - 1][input spin b][output spin a]
+#pragma unroll
+  for (int kk = 0; kk < S; ++kk) {
+    const V* Cs = C + gsite[kk];
+    c0[kk][0] = Cs[0];
+    c0[kk][1] = Cs[15 * XT];
 #pragma unroll
     for (int k = 1; k < 5; ++k)
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
-        cp.a0 = C[(b * 5 + k) * XT + site];         // (0, b, k)
-        cp.a1 = C[((2 + b) * 5 + k) * XT + site];   // (1, b, k)
-        sC[(1 + (k - 1) * 2 + b) * NS + i] = cp;
+        ch[kk][k - 1][b][0] = Cs[(b * 5 + k) * XT];
+        ch[kk][k - 1][b][1] = Cs[((2 + b) * 5 + k) * XT];
       }
   }
-
   // The inverse roots, read once per root from shared memory (indexing the
   // by-value struct with the loop counter compiles to a chain of compares).
   if (i < kMaxFuse) sInv[i] = inv.v[i];
 
-  const int pbeg = blockIdx.y * probes_per_block;
-  const int pend = min(B, pbeg + probes_per_block);
-  const int noff[4] = {1, -1, WT, -WT};  // taps 1..4 within the window
-  const long long pstride = 2 * XT;      // elements per probe
-  // Probe p, spin 0, this thread's site; stepped by PB probes per pass.
-  const V* in_ptr = cur_in + pbeg * pstride + site;
-  V* x_ptr = x + pbeg * pstride + site;
-  V* out_ptr = cur_out + pbeg * pstride + site;
-
-  V nxt[PB][2];
-#pragma unroll
-  for (int q = 0; q < PB; ++q)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-      nxt[q][s] = (pbeg + q < pend) ? load_ahead(in_ptr + q * pstride + s * XT)
-                                    : czero<V>();
-
-  for (int p = pbeg; p < pend; p += PB) {
-    V own[PB][2], xacc[PB][2], xold[PB][2];
+  for (int p = pbeg, w = 0; p < pend; p += PB, w ^= 1) {
+    // Root 0 reads the window as copied; later roots ping-pong in sCur.
+    const V* win = sWin + w * BUF;
+    V own[PB][2][S], xacc[PB][2][S];
+    cp_async_wait_all();
+    __syncthreads();  // every thread's part of the window has arrived
 #pragma unroll
     for (int q = 0; q < PB; ++q)
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        own[q][s] = nxt[q][s];
-        sCur[(q * 2 + s) * NS + i] = own[q][s];
-        xacc[q][s] = czero<V>();
-        xold[q][s] = czero<V>();
-      }
-    in_ptr += PB * pstride;
-    __syncthreads();
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) {
+          own[q][s][kk] = win[((q * 2 + s) * S + kk) * NT + i];
+          xacc[q][s][kk] = czero<V>();
+        }
+    // The next pass's window (into the other buffer, read last a pass ago)
+    // and this pass's x arrive during the roots.
+    if (p + PB < pend) stage(sWin + (w ^ 1) * BUF, cur_in, p + PB, false);
+    if (!first) stage(sX, x, p, true);
+    cp_async_commit();
 
-    // The loads for later are spread over the roots, so that a block does
-    // not send all of them at once: the next probes' window after the first
-    // root, x before the last one (both a root's time ahead of their use).
-    const int j_nxt = min(1, nroots - 1);
     for (int j = 0; j < nroots; ++j) {
       const V iv = sInv[j];
-      if (j == j_nxt) {
-#pragma unroll
-        for (int q = 0; q < PB; ++q)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            nxt[q][s] = (p + PB + q < pend)
-                            ? load_ahead(in_ptr + q * pstride + s * XT)
-                            : czero<V>();
-      }
-      if (j == nroots - 1) {
-#pragma unroll
-        for (int q = 0; q < PB; ++q)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            xold[q][s] = (!first && owner && p + q < pend)
-                             ? load_ahead(x_ptr + q * pstride + s * XT)
-                             : czero<V>();
-      }
 #pragma unroll
       for (int q = 0; q < PB; ++q)
 #pragma unroll
-        for (int s = 0; s < 2; ++s) cfma(xacc[q][s], iv, own[q][s]);
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int kk = 0; kk < S; ++kk) cfma(xacc[q][s][kk], iv, own[q][s][kk]);
       if (j < napply) {
-        const V* src = sCur + (j & 1) * (PB * 2 * NS);
-        V* dst = sCur + ((j & 1) ^ 1) * (PB * 2 * NS);
-        if (wi > j && wi < WX - 1 - j) {
-          V acc[PB][2];
-          CoeffPair<V> cp = sC[i];
+        if (j < row_roots) {
+          const V* src = j == 0 ? win : sCur + ((j - 1) & 1) * BUF;
+          V* dst = sCur + (j & 1) * BUF;
 #pragma unroll
           for (int q = 0; q < PB; ++q) {
-            acc[q][0] = cmul(cp.a0, own[q][0]);
-            acc[q][1] = cmul(cp.a1, own[q][1]);
-          }
+            const V* sq = src + q * PROBE;
+            // The on-site term first, then tap outer and input spin inner,
+            // as the per-site kernel sums them.
+            V acc[S][2];
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
+            for (int kk = 0; kk < S; ++kk) {
+              acc[kk][0] = cmul(c0[kk][0], own[q][0][kk]);
+              acc[kk][1] = cmul(c0[kk][1], own[q][1][kk]);
+            }
 #pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              cp = sC[(1 + k * 2 + b) * NS + i];
+            for (int b = 0; b < 2; ++b)  // tap 1: (0, +1)
 #pragma unroll
-              for (int q = 0; q < PB; ++q) {
-                const V w = src[(q * 2 + b) * NS + i + noff[k]];
-                cfma(acc[q][0], cp.a0, w);
-                cfma(acc[q][1], cp.a1, w);
+              for (int kk = 0; kk < S; ++kk) {
+                const V w = kk + 1 < S ? own[q][b][kk + 1] : sq[b * S * NT + i_tp];
+                cfma(acc[kk][0], ch[kk][0][b][0], w);
+                cfma(acc[kk][1], ch[kk][0][b][1], w);
               }
-            }
 #pragma unroll
-          for (int q = 0; q < PB; ++q)
+            for (int b = 0; b < 2; ++b)  // tap 2: (0, -1)
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
-              cfms(own[q][s], iv, acc[q][s]);  // D step = inv * (D cur)
-              dst[(q * 2 + s) * NS + i] = own[q][s];
-            }
+              for (int kk = 0; kk < S; ++kk) {
+                const V w = kk > 0 ? own[q][b][kk - 1]
+                                   : sq[(b * S + S - 1) * NT + i_tm];
+                cfma(acc[kk][0], ch[kk][1][b][0], w);
+                cfma(acc[kk][1], ch[kk][1][b][1], w);
+              }
+#pragma unroll
+            for (int b = 0; b < 2; ++b)  // tap 3: (+1, 0)
+#pragma unroll
+              for (int kk = 0; kk < S; ++kk) {
+                const V w = sq[(b * S + kk) * NT + i + NSTR];
+                cfma(acc[kk][0], ch[kk][2][b][0], w);
+                cfma(acc[kk][1], ch[kk][2][b][1], w);
+              }
+#pragma unroll
+            for (int b = 0; b < 2; ++b)  // tap 4: (-1, 0)
+#pragma unroll
+              for (int kk = 0; kk < S; ++kk) {
+                const V w = sq[(b * S + kk) * NT + i - NSTR];
+                cfma(acc[kk][0], ch[kk][3][b][0], w);
+                cfma(acc[kk][1], ch[kk][3][b][1], w);
+              }
+            V* dq = dst + q * PROBE;
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+#pragma unroll
+              for (int kk = 0; kk < S; ++kk) {
+                cfms(own[q][s][kk], iv, acc[kk][s]);  // D step = inv * (D cur)
+                dq[(s * S + kk) * NT + i] = own[q][s][kk];
+              }
+          }
         }
         __syncthreads();
       }
     }
 
-    if (owner) {
+    cp_async_wait_all();
 #pragma unroll
-      for (int q = 0; q < PB; ++q) {
-        if (p + q >= pend) break;
+    for (int q = 0; q < PB; ++q) {
+      if (p + q >= pend) break;
+      const long long base = (p + q) * pstride;
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          V xv;
-          xv.x = xold[q][s].x + xacc[q][s].x;
-          xv.y = xold[q][s].y + xacc[q][s].y;
-          x_ptr[q * pstride + s * XT] = xv;
-          if (apply_last) out_ptr[q * pstride + s * XT] = own[q][s];
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) {
+          if (!owned[kk]) continue;
+          V xv = xacc[q][s][kk];
+          if (!first) {
+            const V old = sX[((q * 2 + s) * S + kk) * NT + i];
+            xv.x = old.x + xv.x;
+            xv.y = old.y + xv.y;
+          }
+          x[base + s * XT + gsite[kk]] = xv;
+          if (apply_last) cur_out[base + s * XT + gsite[kk]] = own[q][s][kk];
         }
-      }
     }
-    x_ptr += PB * pstride;
-    out_ptr += PB * pstride;
   }
 }
 
-// Probes per block: the grid is tiles x chunks of probes, one block per SM
-// at a time. Fewer chunks reuse a block's coefficients over more probes;
-// more chunks fill the SMs. Picks the chunk count with the least
-// (waves of blocks) x (probe passes per block + the coefficient load, taken
-// as kCoeffCost passes: 147 KB from L2 against a pass's few microseconds).
-inline int choose_probes_per_block(int B, int tiles, int pb, int sms) {
+// Probes per block: the grid is tiles x chunks of probes, over `slots`
+// blocks resident at a time on the card. Fewer chunks load a block's
+// coefficients for more probes; more chunks fill the SMs. Picks the chunk
+// count with the least (waves of blocks) x (probe passes per block + the
+// coefficient load, taken as kCoeffCost passes).
+inline int choose_probes_per_block(int B, int tiles, int pb, int slots) {
   constexpr int kCoeffCost = 1;
   long long best_cost = -1;
   int best = B;
@@ -573,7 +630,7 @@ inline int choose_probes_per_block(int B, int tiles, int pb, int sms) {
     int ppb = (B + chunks - 1) / chunks;
     ppb = (ppb + pb - 1) / pb * pb;
     const long long blocks = static_cast<long long>(tiles) * ((B + ppb - 1) / ppb);
-    const long long waves = (blocks + sms - 1) / sms;
+    const long long waves = (blocks + slots - 1) / slots;
     const long long cost = waves * (ppb / pb + kCoeffCost);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
@@ -584,35 +641,38 @@ inline int choose_probes_per_block(int B, int tiles, int pb, int sms) {
 }
 
 // What a launch needs to know of its device, found at the first launch
-// there: the SM count (by then the kernel's shared-memory attribute is set),
-// and, per number of applications of D, the chunking chosen for the last
-// (B, X, T). A solver launches the same few shapes over and over, so the
-// launcher does no device query and no search on the way.
+// there: the blocks the card holds at a time (by then the kernel's
+// shared-memory attribute is set), and, per halo depth, the chunking chosen
+// for the last (B, X, T). A solver launches the same few shapes over and
+// over, so the launcher does no device query and no search on the way.
 constexpr int kMaxDevices = 64;
 
 struct TiledSetup {
-  int sms = 0;  // 0: not yet set up
+  int slots = 0;  // 0: not yet set up
   struct Chunking {
     int B = 0, X = 0, T = 0, ppb = 0;
   } chunking[kMaxFuse + 1];
 };
 
-template <typename V, int WX, int WT, int PB>
+template <typename V, int WX, int WT, int S, int PB>
 int launch_poly_tiled(const void* C, const void* cur_in, void* x, void* cur_out,
-                      const double* inv_re_im, int nroots, int first,
+                      const double* inv_re_im, int nroots, int halo, int first,
                       int apply_last, int B, int X, int T, void* stream) {
   if (empty(B, X, T)) return 0;
   const int napply = apply_last ? nroots : nroots - 1;
-  if (nroots < 1 || nroots > kMaxFuse || 2 * napply >= WX || 2 * napply >= WT)
+  if (nroots < 1 || nroots > kMaxFuse || napply > halo || halo > kMaxFuse ||
+      2 * halo >= WX || 2 * halo >= WT ||
+      static_cast<long long>(X) * T > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   InvRoots<V> inv;
   for (int j = 0; j < kMaxFuse; ++j) {
     inv.v[j].x = static_cast<decltype(inv.v[j].x)>(j < nroots ? inv_re_im[2 * j] : 0.0);
     inv.v[j].y = static_cast<decltype(inv.v[j].y)>(j < nroots ? inv_re_im[2 * j + 1] : 0.0);
   }
-  auto kernel = poly_tiled_kernel<V, WX, WT, PB>;
+  auto kernel = poly_tiled_kernel<V, WX, WT, S, PB>;
+  constexpr int threads = WX * WT / S;
   constexpr size_t smem = tiled_smem_bytes<V, WX, WT, PB>();
-  const int tile_x = WX - 2 * napply, tile_t = WT - 2 * napply;
+  const int tile_x = WX - 2 * halo, tile_t = WT - 2 * halo;
   const int tiles = ((X + tile_x - 1) / tile_x) * ((T + tile_t - 1) / tile_t);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -624,18 +684,21 @@ int launch_poly_tiled(const void* C, const void* cur_in, void* x, void* cur_out,
     static TiledSetup setups[kMaxDevices];
     std::lock_guard<std::mutex> lock(mu);
     TiledSetup& setup = setups[dev];
-    if (setup.sms == 0) {
+    if (setup.slots == 0) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      int sms = 0;
+      int sms = 0, per_sm = 0;
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (err != cudaSuccess) return static_cast<int>(err);
-      setup.sms = sms;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      setup.slots = sms * per_sm;
     }
-    TiledSetup::Chunking& ch = setup.chunking[napply];
+    TiledSetup::Chunking& ch = setup.chunking[halo];
     if (ch.B != B || ch.X != X || ch.T != T) {
-      ch.ppb = choose_probes_per_block(B, tiles, PB, setup.sms);
+      ch.ppb = choose_probes_per_block(B, tiles, PB, setup.slots);
       ch.B = B;
       ch.X = X;
       ch.T = T;
@@ -644,9 +707,9 @@ int launch_poly_tiled(const void* C, const void* cur_in, void* x, void* cur_out,
   }
   const dim3 grid(static_cast<unsigned>(tiles),
                   static_cast<unsigned>((B + ppb - 1) / ppb));
-  kernel<<<grid, WX * WT, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(C), static_cast<const V*>(cur_in),
-      static_cast<V*>(x), static_cast<V*>(cur_out), inv, nroots, first,
+      static_cast<V*>(x), static_cast<V*>(cur_out), inv, nroots, halo, first,
       apply_last, ppb, B, X, T);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1233,25 +1296,26 @@ int dmlmc_stencil_poly_step_c128(const void* C, const void* cur, void* x,
 }
 
 // Tiled K3. `inv_re_im` is a host array of 2 * nroots doubles (re, im of
-// 1 / theta_j), nroots <= kMaxFuse. complex64: window 32 x 32, two probes
-// per pass through the coefficients. complex128 has twice the bytes per
-// site in the same shared memory: window 16 x 32, one probe per pass.
+// 1 / theta_j), nroots <= kMaxFuse; `halo` (at least the launch's
+// applications of D) sets the tile: the window less `halo` on each side.
+// The plan of each dtype (window, strip, probes a pass) is
+// ops/stencil_kernels.py WINDOW, STRIP and PROBES_PER_PASS.
 int dmlmc_stencil_poly_tiled_c64(const void* C, const void* cur_in, void* x,
                                  void* cur_out, const double* inv_re_im,
-                                 int nroots, int first, int apply_last, int B,
-                                 int X, int T, void* stream) {
-  return launch_poly_tiled<float2, 32, 32, 2>(C, cur_in, x, cur_out, inv_re_im,
-                                              nroots, first, apply_last, B, X,
-                                              T, stream);
+                                 int nroots, int halo, int first, int apply_last,
+                                 int B, int X, int T, void* stream) {
+  return launch_poly_tiled<float2, 24, 40, 1, 1>(C, cur_in, x, cur_out, inv_re_im,
+                                                 nroots, halo, first, apply_last,
+                                                 B, X, T, stream);
 }
 
 int dmlmc_stencil_poly_tiled_c128(const void* C, const void* cur_in, void* x,
                                   void* cur_out, const double* inv_re_im,
-                                  int nroots, int first, int apply_last, int B,
-                                  int X, int T, void* stream) {
-  return launch_poly_tiled<double2, 16, 32, 1>(C, cur_in, x, cur_out, inv_re_im,
-                                               nroots, first, apply_last, B, X,
-                                               T, stream);
+                                  int nroots, int halo, int first, int apply_last,
+                                  int B, int X, int T, void* stream) {
+  return launch_poly_tiled<double2, 16, 32, 1, 1>(C, cur_in, x, cur_out, inv_re_im,
+                                                  nroots, halo, first, apply_last,
+                                                  B, X, T, stream);
 }
 
 // K4 (coarse_bsr_kernel): `cfg` is a host array of six ints, mode (0 y = A v,

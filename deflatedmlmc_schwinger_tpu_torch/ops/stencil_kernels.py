@@ -16,8 +16,10 @@ Counterpart of ``deflatedmlmc_schwinger_tpu/ops/pallas_stencil.py``:
   * K3 ``stencil_poly_smooth`` x = p(D) r through the residual recurrence
     step_k = cur_k / theta_k, x += step_k, cur_{k+1} = cur_k - D step_k.
     On the card this is the tiled kernel: a launch takes up to
-    ``FUSE_DEPTH`` roots on a shared-memory window with a halo, so a call
-    with m roots is ceil(m / FUSE_DEPTH) launches.
+    ``FUSE_DEPTH`` roots on a window with a halo, each thread a strip of
+    ``STRIP`` sites whose coefficients stay in its registers and only the
+    window's cur in shared memory, so a call with m roots is
+    ceil(m / FUSE_DEPTH) launches.
     ``stencil_poly_smooth_per_root`` is the earlier kernel, one launch per
     root, kept as the yardstick the tiled one is timed against;
     ``stencil_poly_smooth_tiled_plain`` replays the tiled kernel's
@@ -58,14 +60,17 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 
-# The tiled K3 (csrc/stencil.cu poly_tiled_kernel), by dtype: the window of
-# lattice sites one thread block holds in shared memory (fixed in the
-# source) and the most roots one launch is given. complex128 has twice the
-# bytes per site, so half the window, and a shallower halo on it. Four roots
-# were the best or within 5% of it at every shape measured (PERF.md).
+# The tiled K3 (csrc/stencil.cu poly_tiled_kernel), by dtype, fixed in the
+# source: the window of lattice sites one thread block holds, the strip of
+# adjacent t-sites each thread owns (their coefficients live in its
+# registers, so the registers bound the window), the probes a block runs
+# through the roots together, and the most roots one launch is given.
+# bench_torch/k3_sweep.py and PERF.md give the measurements behind them.
 MAX_FUSE = 4                     # kMaxFuse in csrc/stencil.cu
-WINDOW = MappingProxyType({torch.complex64: (32, 32), torch.complex128: (16, 32)})
-FUSE_DEPTH = MappingProxyType({torch.complex64: 4, torch.complex128: 2})
+WINDOW = MappingProxyType({torch.complex64: (24, 40), torch.complex128: (16, 32)})
+STRIP = MappingProxyType({torch.complex64: 1, torch.complex128: 1})
+PROBES_PER_PASS = MappingProxyType({torch.complex64: 1, torch.complex128: 1})
+FUSE_DEPTH = MappingProxyType({torch.complex64: 4, torch.complex128: 4})
 
 # The row kernel of K1/K2 (csrc/stencil.cu stencil_rows_kernel): limits
 # fixed in the source, and what launch_plan aims at (bench_torch/k12_sweep.py
@@ -272,37 +277,63 @@ def fused_passes(m: int, depth: int):
     return out
 
 
+def poly_launches(m: int, depth: int, with_residual: bool):
+    """The launches of a tiled K3 call of m roots, at most ``depth`` each:
+    [(first root, roots, whether its last root applies D)], and the halo
+    that every launch's tiles leave, the most applications of D in one
+    launch (so a call's launches share one tiling)."""
+    out = [(first, n, first + n < m or with_residual)
+           for first, n in fused_passes(m, depth)]
+    return out, max(n if apply_last else n - 1 for _, n, apply_last in out)
+
+
 def stencil_poly_smooth_tiled_plain(coeffs: torch.Tensor, r: torch.Tensor,
                                     roots: Sequence[complex], nx: int, nt: int,
                                     with_residual: bool = False, *,
                                     window: Tuple[int, int] = (32, 32),
-                                    depth: int = 4):
-    """The tiled K3's algorithm in plain PyTorch, window by window (used by
-    the tests only). Each pass of ``fused_passes`` that applies D h times
-    cuts the lattice into tiles of ``window`` - 2h sites, loads each tile's
-    window from the lattice's periodic extension (a lattice smaller than the
-    window simply repeats in it), runs its roots on the window, whose valid
-    region shrinks by one site per application (the rest is filled with NaN
-    here, so a read of an invalid site would show), and writes x and cur on
-    the tile only, ragged tiles cut at the lattice's edge."""
+                                    depth: int = 4, strip: int = 1, probes: int = 1):
+    """The tiled K3's algorithm in plain PyTorch, tile by tile (used by the
+    tests only). The lattice is cut into tiles of ``window`` less the halo
+    of ``poly_launches`` on each side. A launch that applies D h times loads
+    each tile's window from the lattice's periodic extension, h sites before
+    the tile (a lattice smaller than the window repeats in it), for the
+    probes in passes of ``probes`` (the last pass padded with zero probes,
+    computed and dropped), and runs its roots on it. Root j applies D on the
+    rows j + 1 .. H - j, H the last row that the tile's owned rows need
+    (fewer in a ragged tile), and on every column, a column's t +- 1
+    neighbours wrapping within the window's row. ``strip`` (the t-sites a
+    thread owns) must divide the window's width; a strip takes t +- 1 inside
+    it from its own values, which are the window's. Rows outside j + 1 ..
+    H - j and columns outside j + 1 .. WT - 2 - j are then filled with NaN
+    (the kernel leaves old values there, or values no valid site reads), so
+    a read of one would show. x and cur are written on the tile only,
+    ragged tiles cut at the lattice's edge."""
     roots = tuple(complex(t) for t in roots)
     WX, WT = window
+    if WT % strip:
+        raise ValueError(f"a strip of {strip} sites does not divide a window row of {WT}")
+    launches, halo = poly_launches(len(roots), depth, with_residual)
+    tx, tt = WX - 2 * halo, WT - 2 * halo
+    if tx < 1 or tt < 1:
+        raise ValueError(f"a halo of depth {halo} leaves no tile in a {WX} x {WT} window")
     shape = r.shape
     cur = r.reshape((-1, 2, nx, nt))
+    B = cur.shape[0]
+    cur = torch.cat([cur, cur.new_zeros((-B % probes, 2, nx, nt))])
     x = torch.zeros_like(cur)
     nan = complex(float("nan"), float("nan"))
-    passes = fused_passes(len(roots), depth)
-    for first, n in passes:
-        apply_last = first + n < len(roots) or with_residual
+    cols = torch.arange(WT)
+    t_up, t_dn = (cols + 1) % WT, (cols - 1) % WT
+    for first, n, apply_last in launches:
         h = n if apply_last else n - 1
-        tx, tt = WX - 2 * h, WT - 2 * h
-        if tx < 1 or tt < 1:
-            raise ValueError(f"a halo of depth {h} leaves no tile in a {WX} x {WT} window")
-        new_cur = torch.empty_like(cur)
+        new_cur = torch.full_like(cur, nan)
         for x0 in range(0, nx, tx):
+            ox = min(tx, nx - x0)
+            H = min(WX - 2, ox + 2 * h - 2)
             for t0 in range(0, nt, tt):
+                ot = min(tt, nt - t0)
                 ix = (x0 - h + torch.arange(WX)) % nx
-                it = (t0 - h + torch.arange(WT)) % nt
+                it = (t0 - h + cols) % nt
                 win = cur[:, :, ix][:, :, :, it]
                 cw = coeffs[:, :, :, ix][:, :, :, :, it]
                 xacc = torch.zeros_like(win)
@@ -311,25 +342,24 @@ def stencil_poly_smooth_tiled_plain(coeffs: torch.Tensor, r: torch.Tensor,
                     xacc = xacc + step
                     if j >= h:
                         break
-                    lo, hx, ht = j + 1, WX - j - 1, WT - j - 1
-                    d_step = torch.zeros_like(win[:, :, lo:hx, lo:ht])
-                    for k, (dx, dt) in enumerate(TAPS):
-                        s = step[:, :, lo + dx:hx + dx, lo + dt:ht + dt]
-                        c = cw[:, :, k, lo:hx, lo:ht]
+                    taps = (step, step[..., t_up], step[..., t_dn],
+                            torch.roll(step, -1, dims=-2), torch.roll(step, 1, dims=-2))
+                    d_step = torch.zeros_like(step)
+                    for k, s in enumerate(taps):
                         for a in range(2):
                             if k == 0:
-                                d_step[:, a] += c[a, a] * s[:, a]
+                                d_step[:, a] += cw[a, a, 0] * s[:, a]
                             else:
-                                d_step[:, a] += c[a, 0] * s[:, 0] + c[a, 1] * s[:, 1]
+                                d_step[:, a] += cw[a, 0, k] * s[:, 0] + cw[a, 1, k] * s[:, 1]
+                    rows, cs = slice(j + 1, H - j + 1), slice(j + 1, WT - 1 - j)
                     nxt = torch.full_like(win, nan)
-                    nxt[:, :, lo:hx, lo:ht] = win[:, :, lo:hx, lo:ht] - d_step
+                    nxt[:, :, rows, cs] = win[:, :, rows, cs] - d_step[:, :, rows, cs]
                     win = nxt
-                ox, ot = min(tx, nx - x0), min(tt, nt - t0)
                 x[:, :, x0:x0 + ox, t0:t0 + ot] += xacc[:, :, h:h + ox, h:h + ot]
-                if apply_last:
-                    new_cur[:, :, x0:x0 + ox, t0:t0 + ot] = win[:, :, h:h + ox, h:h + ot]
+                new_cur[:, :, x0:x0 + ox, t0:t0 + ot] = win[:, :, h:h + ox, h:h + ot]
         if apply_last:
             cur = new_cur
+    x, cur = x[:B], cur[:B]
     return x.reshape(shape), (cur.reshape(shape) if with_residual else None)
 
 
@@ -401,7 +431,7 @@ def load_library() -> ctypes.CDLL:
                     "stencil_residual_per_site":
                         ("residual_per_site", [P, P, P, P, I, I, I, I, P]),
                     "stencil_poly_step": ("poly_step", [P, P, P, P, D, D, I, I, I, I, I, P]),
-                    "stencil_poly_tiled": ("poly_tiled", [P, P, P, P, P, I, I, I, I, I, I, P]),
+                    "stencil_poly_tiled": ("poly_tiled", [P, P, P, P, P] + [I] * 7 + [P]),
                     # K4 (ops/block_kernels.py): seven pointers, 1/theta, cfg, stream
                     "coarse_bsr": ("coarse_bsr", [P] * 7 + [D, D, P, P]),
                 }
@@ -604,27 +634,44 @@ def stencil_poly_smooth(coeffs: torch.Tensor, r: torch.Tensor,
     """K3: x = p(D) r by the tiled kernel, up to ``FUSE_DEPTH`` roots per
     launch (the roots are spread by ``fused_passes``). Returns (x, r - D x)
     with ``with_residual`` (m applications of D), else (x, None) (m - 1).
-    complex64 and complex128 take the same kernel template; they differ in
-    ``WINDOW``, ``FUSE_DEPTH`` and the probes a block takes per pass (2 and
-    1). ``.launches`` counts kernel launches, so a call adds
-    ceil(m / FUSE_DEPTH) to it, not m."""
+    complex64 and complex128 take the same kernel template with their own
+    ``WINDOW``, ``STRIP``, ``PROBES_PER_PASS`` and ``FUSE_DEPTH``.
+    ``.launches`` counts kernel launches, so a call adds ceil(m / FUSE_DEPTH)
+    to it, not m; ``.plans`` counts them by plan (``_plan_key``)."""
     roots, B = _poly_operands(coeffs, r, roots, nx, nt)
     if B is None:
         return stencil_poly_smooth_plain(coeffs, r, roots, nx, nt, with_residual)
     return _poly_tiled(coeffs, r, roots, nx, nt, with_residual, B, FUSE_DEPTH[r.dtype])
 
 
-def _poly_tiled(coeffs, r, roots, nx, nt, with_residual, B, depth):
+# launches of the tiled K3 by plan; the same dict as stencil_poly_smooth.plans,
+# updated here because a tracer may stand in for that name (benchmark/devtrace.py)
+_k3_plans: dict = {}
+
+
+def _plan_key(dtype: torch.dtype, B: int, nx: int, nt: int, halo: int) -> str:
+    """What a launch of the tiled K3 ran: the shape and the dtype's plan."""
+    (wx, wt), S, pb = WINDOW[dtype], STRIP[dtype], PROBES_PER_PASS[dtype]
+    return (f"{_SUFFIX[dtype]} B={B} {nx}x{nt}: window {wx}x{wt}, strip {S}, "
+            f"{pb} probes a pass, halo {halo}")
+
+
+def _poly_tiled(coeffs, r, roots, nx, nt, with_residual, B, depth, fn=None):
     """The launches of ``stencil_poly_smooth`` on validated CUDA operands,
-    at most ``depth`` <= MAX_FUSE roots each."""
-    fn = _fn("stencil_poly_tiled", _SUFFIX[r.dtype])
+    at most ``depth`` <= MAX_FUSE roots each. ``fn``: the entry of another
+    build with the same C signature (bench_torch/k3_sweep.py's variants),
+    whose launches count nowhere."""
+    launches, halo = poly_launches(len(roots), depth, with_residual)
     x = torch.empty_like(r)
     bufs = [None, None]  # ping-pong for cur between launches
     cur = r
+    counted = fn is None
+    if counted:
+        fn = _fn("stencil_poly_tiled", _SUFFIX[r.dtype])
+        key = _plan_key(r.dtype, B, nx, nt, halo)
     with torch.cuda.device(r.device):
         stream = _raw_stream(r.device.index)
-        for i, (first, n) in enumerate(fused_passes(len(roots), depth)):
-            apply_last = first + n < len(roots) or with_residual
+        for i, (first, n, apply_last) in enumerate(launches):
             out = None
             if apply_last:
                 if bufs[i % 2] is None:
@@ -635,10 +682,12 @@ def _poly_tiled(coeffs, r, roots, nx, nt, with_residual, B, depth):
                 z = 1.0 / roots[first + j]
                 inv[2 * j], inv[2 * j + 1] = z.real, z.imag
             _check(fn(coeffs.data_ptr(), cur.data_ptr(), x.data_ptr(),
-                      out.data_ptr() if apply_last else None, inv, n,
+                      out.data_ptr() if apply_last else None, inv, n, halo,
                       int(first == 0), int(apply_last), B, nx, nt,
                       stream), "stencil_poly_smooth")
-            stencil_poly_smooth.launches += 1
+            if counted:
+                stencil_poly_smooth.launches += 1
+                _k3_plans[key] = _k3_plans.get(key, 0) + 1
             if apply_last:
                 cur = out
     return x, (cur if with_residual else None)
@@ -684,6 +733,7 @@ YARDSTICKS = (stencil_poly_smooth_per_root, stencil_matvec_per_site,
 def reset_launch_counts() -> None:
     for fn in KERNELS + YARDSTICKS:
         fn.launches = 0
+    _k3_plans.clear()
 
 
 def launch_counts() -> dict:
@@ -694,4 +744,5 @@ def yardstick_counts() -> dict:
     return {fn.__name__: fn.launches for fn in YARDSTICKS}
 
 
+stencil_poly_smooth.plans = _k3_plans
 reset_launch_counts()

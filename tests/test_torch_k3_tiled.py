@@ -1,12 +1,17 @@
 """The tiled K3's algorithm (several roots per launch on a window of the
-periodic lattice with a halo) replayed in plain PyTorch, against the plain
-recurrence and the JAX package's Pallas kernel in interpret mode, complex128.
+periodic lattice with a halo, a strip of t-sites a thread, probes in passes)
+replayed in plain PyTorch, against the plain recurrence and the JAX
+package's Pallas kernel in interpret mode, complex128.
 
 The CUDA kernel itself runs only on the card, where chip_smoke.py holds it
 to the plain recurrence on the same kinds of shapes. The replay shares with
-the kernel's wrapper how the roots are spread over launches
-(``fused_passes``) and marks every window site outside the valid region with
-NaN, so a tile that read one would not come out finite."""
+the kernel's wrapper how the roots are spread over launches and the halo
+they leave (``poly_launches``), and marks every window site outside the
+region the kernel computes with NaN, so a tile that read one would not come
+out finite."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +32,9 @@ ATOL = 1e-12
 # (X, T): smaller than a window, two that no tile divides, one that is
 # several windows wide
 LATTICES = [(8, 8), (24, 40), (20, 52), (32, 64)]
+# the complex64 plan's geometry (window, strip, probes a pass)
+C64 = torch.complex64
+GEOMETRY = dict(window=sk.WINDOW[C64], strip=sk.STRIP[C64], probes=sk.PROBES_PER_PASS[C64])
 
 
 def _roots(m, seed=4):
@@ -64,22 +72,74 @@ def test_tiled_replay_matches_plain(nx, nt, m, depth, with_residual):
     roots = _roots(m)
     ref = sk.stencil_poly_smooth_plain(C, r, roots, nx, nt, with_residual)
     got = sk.stencil_poly_smooth_tiled_plain(C, r, roots, nx, nt, with_residual,
-                                             window=(32, 32), depth=depth)
+                                             depth=depth, **GEOMETRY)
     _assert_same(got, ref)
 
 
-@pytest.mark.parametrize("window,depth", [((16, 32), 2), ((12, 10), 3), ((32, 32), 8)])
-@pytest.mark.parametrize("nx,nt", [(24, 40), (20, 52)])
-def test_tiled_replay_other_windows(nx, nt, window, depth):
-    """The complex128 window of the kernel, a small odd one, and the deepest
-    halo a launch takes."""
+@pytest.mark.parametrize("window,depth,strip,probes",
+                         [((16, 32), 2, 2, 1), ((12, 10), 3, 2, 2), ((32, 32), 8, 4, 3)])
+@pytest.mark.parametrize("nx,nt", [(24, 40), (20, 52), (21, 41)])
+def test_tiled_replay_other_windows(nx, nt, window, depth, strip, probes):
+    """Strips of 2 and 4 sites (also on a T that no strip divides), a small
+    odd window, probes in passes of 2 and 3, and a halo deeper than a launch
+    takes."""
     C, r = _inputs(nx, nt, batch=2, seed=2)
     roots = _roots(7, seed=5)
     for with_residual in (False, True):
         ref = sk.stencil_poly_smooth_plain(C, r, roots, nx, nt, with_residual)
         got = sk.stencil_poly_smooth_tiled_plain(C, r, roots, nx, nt, with_residual,
-                                                 window=window, depth=depth)
+                                                 window=window, depth=depth, strip=strip,
+                                                 probes=probes)
         _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 37])
+@pytest.mark.parametrize("nx,nt", [(24, 41), (5, 7), (20, 52)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_tiled_replay_of_each_plan(dtype, nx, nt, B, with_residual):
+    """Each dtype's plan at its depth on an odd T, a lattice smaller than
+    the window and ragged tiles, for 1, 3 and 37 probes (strips of 2 and 4
+    sites on an odd T and probes in passes of 2 and 3 are in
+    test_tiled_replay_other_windows)."""
+    C, r = _inputs(nx, nt, batch=B, seed=3)
+    roots = _roots(2 * sk.FUSE_DEPTH[dtype] + 1, seed=8)
+    ref = sk.stencil_poly_smooth_plain(C, r, roots, nx, nt, with_residual)
+    got = sk.stencil_poly_smooth_tiled_plain(
+        C, r, roots, nx, nt, with_residual, window=sk.WINDOW[dtype],
+        depth=sk.FUSE_DEPTH[dtype], strip=sk.STRIP[dtype], probes=sk.PROBES_PER_PASS[dtype])
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("m,depth,with_residual,halo",
+                         [(16, 4, True, 4), (16, 4, False, 4), (4, 2, True, 2), (4, 2, False, 2),
+                          (5, 4, False, 3), (1, 4, False, 0), (1, 4, True, 1), (3, 4, False, 2)])
+def test_poly_launches_share_one_halo(m, depth, with_residual, halo):
+    launches, h = sk.poly_launches(m, depth, with_residual)
+    assert h == halo
+    assert [(f, n) for f, n, _ in launches] == sk.fused_passes(m, depth)
+    assert [a for *_, a in launches] == [f + n < m or with_residual for f, n, _ in launches]
+
+
+def test_strip_must_divide_the_window_row():
+    C, r = _inputs(8, 8)
+    with pytest.raises(ValueError):
+        sk.stencil_poly_smooth_tiled_plain(C, r, _roots(4), 8, 8, True,
+                                           window=(24, 30), depth=2, strip=4)
+
+
+@pytest.mark.parametrize("dtype,sfx,vec", [(torch.complex64, "c64", "float2"),
+                                           (torch.complex128, "c128", "double2")])
+def test_the_entries_launch_each_dtypes_plan(dtype, sfx, vec):
+    """The C entry of each dtype instantiates the plan the wrapper reports
+    (WINDOW, STRIP, PROBES_PER_PASS)."""
+    src = (Path(sk.__file__).resolve().parent.parent / "csrc" / "stencil.cu").read_text()
+    body = src[src.index(f"int dmlmc_stencil_poly_tiled_{sfx}("):]
+    m = re.search(r"launch_poly_tiled<(\w+), (\d+), (\d+), (\d+), (\d+)>", body)
+    assert m.group(1) == vec
+    (wx, wt), S, pb = sk.WINDOW[dtype], sk.STRIP[dtype], sk.PROBES_PER_PASS[dtype]
+    assert tuple(int(g) for g in m.groups()[1:]) == (wx, wt, S, pb)
+    assert wt % S == 0
 
 
 @pytest.mark.parametrize("nx,nt,m,depth,with_residual",
@@ -128,7 +188,8 @@ def test_halo_must_leave_a_tile():
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_fuse_depth_leaves_a_tile(dtype):
-    """The deepest halo a launch of the kernel may get fits its window."""
+    """The deepest halo a launch of the kernel may get fits its window, in
+    the dtype's plan."""
     WX, WT = sk.WINDOW[dtype]
     d = sk.FUSE_DEPTH[dtype]
     assert 1 <= d <= sk.MAX_FUSE and 2 * d < min(WX, WT)
@@ -136,7 +197,8 @@ def test_fuse_depth_leaves_a_tile(dtype):
     roots = _roots(2 * d + 1)
     ref = sk.stencil_poly_smooth_plain(C, r, roots, 24, 40, True)
     got = sk.stencil_poly_smooth_tiled_plain(C, r, roots, 24, 40, True,
-                                             window=(WX, WT), depth=d)
+                                             window=(WX, WT), depth=d, strip=sk.STRIP[dtype],
+                                             probes=sk.PROBES_PER_PASS[dtype])
     _assert_same(got, ref)
 
 
@@ -151,3 +213,15 @@ def test_cpu_tensors_take_the_plain_version():
         got = fn(C, r, roots, 24, 40, with_residual=True)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         assert fn.launches == 0
+    assert sk.stencil_poly_smooth.plans == {}
+
+
+def test_plans_reset_with_the_launch_counts():
+    """``stencil_poly_smooth.plans`` is one dict, emptied in place by
+    ``reset_launch_counts``, keyed by the shape and the dtype's plan."""
+    plans = sk.stencil_poly_smooth.plans
+    key = sk._plan_key(torch.complex128, 128, 128, 128, 2)
+    assert key.startswith("c128 B=128 128x128: window ")
+    plans[key] = 3
+    sk.reset_launch_counts()
+    assert sk.stencil_poly_smooth.plans is plans and plans == {}
